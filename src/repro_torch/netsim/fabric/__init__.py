@@ -1,0 +1,95 @@
+"""``repro_torch.netsim.fabric`` — the port's fabric registry.
+
+The registry maps a spec-level fabric name × scale to a builder. The
+port has the dragonfly fabrics only:
+
+=========  =======================  ==========================
+name       small                    paper
+=========  =======================  ==========================
+``1d``     9g × 8r × 7n dragonfly   33g × 32r × 8n (Table II)
+``2d``     7g × 12r × 6n dragonfly  22g × 96r × 4n (Table II)
+=========  =======================  ==========================
+
+The JAX package's fat-tree and torus fabrics are not ported yet:
+:data:`NOT_PORTED` names them so that a scenario asking for one fails
+validation with a message that says so.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from repro_torch.netsim.config import NetConfig
+from repro_torch.netsim.fabric.base import Fabric, KIND_TERM_IN, KIND_TERM_OUT
+from repro_torch.netsim.fabric.dragonfly import (
+    Dragonfly,
+    build_dragonfly,
+    dragonfly_1d_paper,
+    dragonfly_1d_small,
+    dragonfly_2d_paper,
+    dragonfly_2d_small,
+)
+
+BUILDERS = {
+    ("1d", "paper"): dragonfly_1d_paper,
+    ("2d", "paper"): dragonfly_2d_paper,
+    ("1d", "small"): dragonfly_1d_small,
+    ("2d", "small"): dragonfly_2d_small,
+}
+
+# fabrics of the JAX package that the port does not build yet
+NOT_PORTED = ("fat_tree", "torus")
+
+
+def fabric_names() -> Tuple[str, ...]:
+    """The legal spec-level fabric names, in registry order."""
+    out = []
+    for name, _scale in BUILDERS:
+        if name not in out:
+            out.append(name)
+    return tuple(out)
+
+
+def scale_names() -> Tuple[str, ...]:
+    out = []
+    for _name, scale in BUILDERS:
+        if scale not in out:
+            out.append(scale)
+    return tuple(out)
+
+
+def check_ported(name: str) -> None:
+    """Raise ``ValueError`` for a fabric the port does not build yet."""
+    if name in NOT_PORTED:
+        raise ValueError(
+            f"fabric {name!r} is not yet ported to repro_torch; ported "
+            f"fabrics: {sorted(fabric_names())}"
+        )
+
+
+def get_fabric(name: str, scale: str = "small",
+               net: Optional[NetConfig] = None) -> Fabric:
+    """Build the registered fabric ``name`` at ``scale``."""
+    check_ported(name)
+    try:
+        builder = BUILDERS[(name, scale)]
+    except KeyError:
+        raise ValueError(
+            f"unknown fabric {name!r} at scale {scale!r}; valid fabrics: "
+            f"{sorted(fabric_names())}, scales: {sorted(scale_names())}"
+        ) from None
+    return builder(net)
+
+
+def routing_tables(topo: Fabric, device):
+    """``(T, route_fn)`` — the fabric's gather tables on ``device`` and its
+    batched router, the engine's one dispatch point."""
+    return topo.routing_tables(device)
+
+
+__all__ = [
+    "Fabric", "KIND_TERM_IN", "KIND_TERM_OUT",
+    "Dragonfly", "build_dragonfly", "dragonfly_1d_paper",
+    "dragonfly_1d_small", "dragonfly_2d_paper", "dragonfly_2d_small",
+    "BUILDERS", "NOT_PORTED", "fabric_names", "scale_names", "check_ported",
+    "get_fabric", "routing_tables",
+]

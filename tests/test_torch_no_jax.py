@@ -1,0 +1,95 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no quiet CPU runs.
+
+* Importing ``repro_torch`` and every module of it in a fresh interpreter
+  loads no ``jax`` module and no ``repro`` module.
+* No source file of the port names either in an import.
+* An entry point called without ``device="cpu"`` on a machine without a
+  card raises instead of running on the CPU.
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "repro_torch.launch.sim" in names, names
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), "modules")
+assert not bad, bad
+"""
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) >= 20
+
+
+IMPORT = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)(\.|\s|$)"
+    r"|from\s+(jax|jaxlib|repro)(\.|\s))", re.M)
+
+
+def test_no_port_source_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) >= 20
+    hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
+            for p in files for m in IMPORT.finditer(p.read_text())]
+    assert not hits, hits
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the behaviour "
+                    "without one")
+
+
+def _tiny_scenario():
+    from repro_torch.union.scenario import Scenario, ScenarioJob
+
+    return Scenario(
+        name="tiny", placement="RN", tick_us=2.0, horizon_ms=1.0,
+        pool_size=64,
+        jobs=[ScenarioJob(
+            app="pp", ranks=2,
+            source="For 2 repetitions { task 0 sends a 1024 byte message "
+                   "to task 1 then task 1 sends a 1024 byte message to "
+                   "task 0 }")])
+
+
+def test_entry_points_raise_without_a_card(no_card, tmp_path):
+    from repro_torch.launch import sim
+    from repro_torch.union import manager
+
+    rs = manager.resolve(_tiny_scenario())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        manager.build(rs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        manager.run_scenario(_tiny_scenario())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sim.run_sim("baseline-nn", "1d", "RG", "ADP", horizon_ms=1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sim.main(["--workload", "baseline-nn", "--horizon-ms", "1",
+                  "--out", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
+    # and with the CPU asked for, the same scenario runs
+    rep = manager.run_scenario(_tiny_scenario(), device="cpu")
+    assert rep["latency"]["pp"]["count"] == 4
