@@ -8,7 +8,8 @@ file; exits non-zero without them. Every phase prints one JSON line with
 its seconds, and any failure raises (non-zero exit, no result line):
 
 1. build ``src/repro_torch/kernels/csrc/drain_tick.cu`` for ``sm_90a``;
-   print the card's name and power limit;
+   print the card's name and power limit, in the build line and on a
+   line of its own as ``nvidia-smi`` gives them;
 2. drain-tick kernel against its plain PyTorch version on the card at the
    paper's shapes (M = 65,536 and a ragged 65,573; K = 10; L+1 = 53,857
    and 73,921; B = 1 with a 1-D bandwidth row, B = 3 with per-member rows
@@ -18,12 +19,15 @@ its seconds, and any failure raises (non-zero exit, no result line):
 3. the two engine goldens of ``tests/data_engine_golden.json`` on the card;
 4. the paper-scale main path on the 1D dragonfly (Table II, 8,448 nodes;
    workload1 + UR, 65,536-message pool) through ``run_sim`` with the
-   launch counts set to 0 just before and read just after; the kernel
+   launch counts set to 0 just before and read just after; the rate is
+   virtual milliseconds simulated per wall second (a tick's virtual time
+   varies with the idle-time skip, and the host loop checks liveness once
+   per 64 ticks, so drain calls are not simulated work); the kernel
    against the plain version on live pool states at sampled ticks; two
    more runs with one seed must give one integer trajectory; a profile
    of 20 ticks (device time by kernel, the device's busy share);
 5. the paper-scale 2D dragonfly (workload3) the same way, shorter;
-6. the kernel summary line, then the card line, then the result line.
+6. the kernel summary line, then the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``).
 """
@@ -470,9 +474,9 @@ def phase_paper(name, cfg, dev):
               workload=cfg["workload"], topo=cfg["topo"],
               horizon_ms=cfg["horizon_ms"], nodes=rs.topo.n_nodes,
               links=rs.topo.n_links, pool=rs.pool_size,
-              virtual_time_ms=rep["virtual_time_ms"], ticks=calls,
-              wall_s=wall, ticks_per_s=calls / wall,
-              drain_launches=launches, dropped=rep["dropped"],
+              virtual_time_ms=rep["virtual_time_ms"], wall_s=wall,
+              virtual_ms_per_wall_s=rep["virtual_time_ms"] / wall,
+              drain_calls=calls, drain_launches=launches, dropped=rep["dropped"],
               peak_device_mib=peak_mib, delivered=delivered,
               sampled_ticks=sampled, identical_reruns=True,
               profile=prof))
@@ -503,6 +507,7 @@ def main() -> int:
               torch=torch.__version__, cuda=torch.version.cuda,
               compiler_output=_build.BUILD_LOG["drain_tick"]
               ["compiler_output"].strip().splitlines()))
+    print(card, flush=True)
 
     rows, max_err = phase_kernel(dev)
     phase_goldens(dev)
@@ -524,7 +529,6 @@ def main() -> int:
         library_ms=None, kernel_ms=main_row["kernel_ms"],
         bound_us=main_row["bound_ms"] * 1e3,
     )]})
-    print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

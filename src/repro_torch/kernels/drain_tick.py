@@ -24,6 +24,7 @@ Returns (new_rem (B,M), rate (B,M), delivered (B,M) bool,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -81,24 +82,32 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
             f"{tuple(x.shape)} on {x.device}")
 
 
+@functools.cache
+def _entry_points():
+    """The built library's launch and error-string functions, with their C
+    signatures set once (the library is built at the first call)."""
+    lib = _build.load("drain_tick")
+    launch = lib.drain_tick_launch
+    launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7
+    launch.restype = ctypes.c_int
+    error_string = lib.drain_tick_error_string
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+    return launch, error_string
+
+
 def drain_tick_cuda(routes, bytes_rem, active, job, min_arrive, t, dt,
                     bw_eff, link_dst_router, n_apps, n_routers):
     """Launch the CUDA kernel on the current stream (no synchronisation).
 
     Raises on a tensor the kernel does not take and on a launch the
     driver refuses."""
-    lib = _build.load("drain_tick")
-    fn = lib.drain_tick_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
-    lib.drain_tick_error_string.argtypes = [ctypes.c_int]
-    lib.drain_tick_error_string.restype = ctypes.c_char_p
-
     dev = routes.device
     if dev.type != "cuda":
         raise ValueError(f"drain_tick_cuda needs CUDA tensors, got {dev}")
+    launch, error_string = _entry_points()
     B, M, K = routes.shape
     Lp = bw_eff.shape[-1]
     R = int(n_routers)
@@ -124,7 +133,7 @@ def drain_tick_cuda(routes, bytes_rem, active, job, min_arrive, t, dt,
     lb = torch.empty((B, Lp), dtype=torch.float32, device=dev)
     rw = torch.empty((B, A, R), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
+    err = launch(
         _ptr(routes), _ptr(bytes_rem), _ptr(active), _ptr(job),
         _ptr(min_arrive), _ptr(t), ctypes.c_float(float(dt)), _ptr(bw_eff),
         ctypes.c_int64(bw_stride), _ptr(link_dst_router),
@@ -133,6 +142,6 @@ def drain_tick_cuda(routes, bytes_rem, active, job, min_arrive, t, dt,
         _ptr(rw), ctypes.c_void_p(stream),
     )
     if err != 0:
-        msg = lib.drain_tick_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"drain_tick kernel launch failed: {msg} ({err})")
     return new_rem, rate, delivered, lb, rw

@@ -55,7 +55,7 @@ from repro_torch.core.skeleton import OP, SkeletonProgram
 from repro_torch.kernels import ops as KOPS
 from repro_torch.netsim.config import NetConfig
 from repro_torch.netsim.fabric import Fabric, routing_tables
-from repro_torch.netsim.faults import FaultState
+from repro_torch.netsim.faults import FaultState, healthy_state
 
 MAXE = 8  # max emissions per rank per (op, round)
 MASK32 = 0xFFFFFFFF
@@ -203,7 +203,6 @@ class Engine:
     init_state: Callable
     run: Callable
     tick: Callable
-    capacity: EngineCapacity
 
     def __iter__(self):
         return iter((self.init_state, self.run, self.tick))
@@ -218,18 +217,9 @@ def pack_jobs(
     cap: EngineCapacity,
     *,
     device,
-    placements: Optional[Sequence[np.ndarray]] = None,
-    start_us: Optional[Sequence[float]] = None,
-    job_start_us: Optional[Sequence[float]] = None,
-    rank_slowdown: Optional[Sequence[Optional[np.ndarray]]] = None,
 ) -> JobTable:
     """Stack a job list into the padded (Jmax, Pmax/OPmax) runtime tables
-    on ``device``.
-
-    ``start_us`` *replaces* each job's arrival offset outright (a member's
-    actual schedule); ``job_start_us`` provides build-time defaults that
-    are maxed with each job's own ``start_us`` attribute.
-    """
+    on ``device``."""
     J, Pmax, OPmax = cap.Jmax, cap.Pmax, cap.OPmax
     if len(jobs) > J:
         raise ValueError(f"{len(jobs)} jobs exceed engine capacity Jmax={J}")
@@ -250,16 +240,8 @@ def pack_jobs(
         ops[ji, : sk.n_ops] = sk.ops
         grid[ji, : sk.n_ops] = sk.grid
         P[ji] = sk.n_ranks
-        pl = placements[ji] if placements is not None else j.rank2node
-        r2n[ji, : sk.n_ranks] = np.asarray(pl, np.int32)
-        if rank_slowdown is not None and rank_slowdown[ji] is not None:
-            slow[ji, : sk.n_ranks] = np.asarray(rank_slowdown[ji], np.float32)
-        s = float(j.start_us)
-        if job_start_us is not None and job_start_us[ji] is not None:
-            s = max(s, float(job_start_us[ji]))
-        if start_us is not None and start_us[ji] is not None:
-            s = float(start_us[ji])
-        start[ji] = s
+        r2n[ji, : sk.n_ranks] = np.asarray(j.rank2node, np.int32)
+        start[ji] = float(j.start_us)
     logp = np.asarray([_ceil_log2(int(p)) for p in P], np.int32)
 
     def dev(x):
@@ -380,8 +362,6 @@ def build_engine(
     net: Optional[NetConfig] = None,
     pool_size: Optional[int] = None,
     horizon_us: float = 500_000.0,
-    rank_slowdown: Optional[Sequence[np.ndarray]] = None,
-    job_start_us: Optional[Sequence[float]] = None,
     capacity: Optional[EngineCapacity] = None,
     device=None,
     probes=None,
@@ -390,9 +370,9 @@ def build_engine(
     """Returns an :class:`Engine` — unpacks as ``(init_state, run, tick)``;
     ``run``: state -> final state.
 
-    ``jobs`` provides the *default* job set and sizes the capacity envelope
-    when ``capacity`` is not given; ``init_state(jobs_override=...)`` swaps
-    in any other job set that fits the envelope. ``run`` and ``tick``
+    ``jobs`` is the job set; ``capacity`` (default: what ``jobs`` need)
+    may widen the padded envelope, as a scenario's ``reserve`` does. ``run``
+    and ``tick``
     accept a member state or a stacked batch of members (leading ``B``
     dim).
 
@@ -903,34 +883,11 @@ def build_engine(
         )
 
     # ------------------------------------------------------------------
-    def init_state(
-        seed: int = 1,
-        placements: Optional[Sequence[np.ndarray]] = None,
-        start_us: Optional[Sequence[float]] = None,
-        jobs_override: Optional[Sequence[JobSpec]] = None,
-        rank_slowdown_override: Optional[Sequence[np.ndarray]] = None,
-        faults: Optional[FaultState] = None,
-    ) -> SimState:
-        """Build one member's initial state on the engine's device.
-
-        ``placements`` (jobs' rank2node arrays, plus UR's as the final
-        entry when a UR source exists) overrides the build-time
-        placements; ``start_us`` overrides per-job arrival offsets;
-        ``seed`` sets the engine RNG; ``jobs_override`` swaps in a
-        different job set that fits the envelope; ``faults`` sets the
-        member's runtime fault mask (default healthy).
-        """
-        js = list(jobs_override) if jobs_override is not None else list(jobs)
-        slow = rank_slowdown_override
-        if slow is None and jobs_override is None:
-            slow = rank_slowdown
-        table = pack_jobs(
-            js, cap, device=dev,
-            placements=placements[: len(js)] if placements is not None else None,
-            start_us=start_us,
-            job_start_us=job_start_us if jobs_override is None else None,
-            rank_slowdown=slow,
-        )
+    def init_state(seed: int = 1) -> SimState:
+        """Build one member's initial state on the engine's device, with
+        the build-time jobs and placements; ``seed`` sets the engine RNG.
+        Faults start healthy."""
+        table = pack_jobs(jobs, cap, device=dev)
         P_np = table.P.cpu().numpy()
         ops_np = table.ops.cpu().numpy()
         ranks = np.arange(Pmax, dtype=np.int32)[None, :]
@@ -956,12 +913,7 @@ def build_engine(
                 next_t=full((Pu,), float(ur.start_us), f32),
                 count=torch.zeros((Pu,), dtype=i32, device=dev),
             )
-            nodes = (
-                placements[len(js)]
-                if placements is not None and len(placements) > len(js)
-                else ur_r2n
-            )
-            ur_nodes = torch.as_tensor(np.asarray(nodes, np.int32), device=dev)
+            ur_nodes = torch.as_tensor(ur_r2n, device=dev)
         pool = PoolState(
             active=torch.zeros((M,), dtype=torch.bool, device=dev),
             src_rank=torch.zeros((M,), dtype=i32, device=dev),
@@ -988,24 +940,8 @@ def build_engine(
             win_idx=full((), 0, i32),
             peak_inject=full((), 0.0, f32),
         )
-        if faults is None:
-            flt = FaultState(
-                link_bw_factor=torch.ones((L,), dtype=f32, device=dev),
-                router_factor=torch.ones((R,), dtype=f32, device=dev),
-            )
-        else:
-            flt = FaultState(
-                link_bw_factor=torch.as_tensor(
-                    np.asarray(faults.link_bw_factor, np.float32), device=dev),
-                router_factor=torch.as_tensor(
-                    np.asarray(faults.router_factor, np.float32), device=dev),
-            )
-            if tuple(flt.link_bw_factor.shape) != (L,) \
-                    or tuple(flt.router_factor.shape) != (R,):
-                raise ValueError(
-                    f"faults shapes {tuple(flt.link_bw_factor.shape)}/"
-                    f"{tuple(flt.router_factor.shape)} do not match fabric "
-                    f"(L={L}, R={R})")
+        flt = FaultState(*[torch.as_tensor(x, device=dev)
+                            for x in healthy_state(topo)])
         return SimState(
             t=full((), 0.0, f32), vms=vms, ur=ur_state, pool=pool,
             metrics=metrics, rng=full((), int(seed) & MASK32, i64),
@@ -1027,7 +963,6 @@ def build_engine(
         init_state=init_state,
         run=_member_batched(run_batched),
         tick=_member_batched(tick_batched),
-        capacity=cap,
     )
 
 

@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
-import numpy as np
 
 from repro_torch.core import workloads as W
 from repro_torch.core.translator import translate_source
@@ -72,10 +71,6 @@ class ResolvedScenario:
     pool_size: int
     horizon_us: float
     placement_seed: int
-
-    def placements(self, seed: int) -> List[np.ndarray]:
-        """Per-member placements: same scenario shape, a fresh draw."""
-        return place_jobs(self.topo, self.job_sizes, self.scenario.placement, seed=seed)
 
     @property
     def start_us(self) -> List[float]:
@@ -135,62 +130,26 @@ def resolve(scenario: Scenario, seed: int = 0) -> ResolvedScenario:
     )
 
 
-def build(rs: ResolvedScenario, device=None,
-          capacity: Optional[EngineCapacity] = None) -> Engine:
+def build(rs: ResolvedScenario, device=None) -> Engine:
     """The engine for a resolved scenario on ``device`` (CUDA by default):
     an :class:`~repro_torch.netsim.engine.Engine` that unpacks as
-    ``init, run, tick``, with this scenario's job set and UR placement
-    bound as the init-time defaults.
-
-    ``capacity`` widens the envelope beyond this scenario's own needs.
+    ``init, run, tick``, built with this scenario's jobs, UR placement and
+    capacity envelope (``reserve`` included). There is no engine cache, so
+    the JAX package's job-free engine and its ``bind_jobs`` wrapper have
+    nothing to do here.
     """
-    cap = rs.capacity if capacity is None else capacity.union(rs.capacity)
-    eng = build_engine(
-        rs.topo, [], routing=rs.scenario.routing, ur=rs.ur, net=rs.net,
-        pool_size=rs.pool_size, horizon_us=rs.horizon_us, capacity=cap,
-        device=device,
-    )
-    return bind_jobs(eng, rs)
-
-
-def bind_jobs(eng: Engine, rs: ResolvedScenario) -> Engine:
-    """Wrap a job-free engine so ``init_state`` defaults to this
-    scenario's jobs and UR placement."""
-    default_placements = [np.asarray(j.rank2node) for j in rs.jobs]
-    if rs.ur is not None:
-        default_placements.append(np.asarray(rs.ur.rank2node))
-
-    def init_state(seed: int = 1, placements=None, start_us=None,
-                   jobs_override=None, rank_slowdown_override=None,
-                   faults=None):
-        if jobs_override is None:
-            jobs_override = rs.jobs
-            if placements is None:
-                placements = default_placements
-        return eng.init_state(
-            seed=seed, placements=placements, start_us=start_us,
-            jobs_override=jobs_override,
-            rank_slowdown_override=rank_slowdown_override,
-            faults=faults,
-        )
-
-    return Engine(
-        init_state=init_state, run=eng.run, tick=eng.tick,
-        capacity=eng.capacity,
+    return build_engine(
+        rs.topo, rs.jobs, routing=rs.scenario.routing, ur=rs.ur, net=rs.net,
+        pool_size=rs.pool_size, horizon_us=rs.horizon_us,
+        capacity=rs.capacity, device=device,
     )
 
 
 def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,
-                  seed: int = 0, strict: bool = False,
-                  start_us: Optional[Sequence[float]] = None,
-                  capacity: Optional[EngineCapacity] = None) -> Dict:
-    """The standard report of one member state (on any device).
-
-    ``start_us`` records this member's *actual* arrival schedule when it
-    differs from the scenario's; ``capacity`` is the engine envelope the
-    state was simulated under (defaults to the scenario's own)."""
+                  seed: int = 0, strict: bool = False) -> Dict:
+    """The standard report of one member state (on any device)."""
     state = state_to_numpy(state)
-    cap = capacity or rs.capacity
+    cap = rs.capacity
     names = rs.padded_app_names(cap)
     rep = MET.run_report(state, names, rs.topo, rs.net, wall_s,
                          strict=strict)
@@ -198,8 +157,7 @@ def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,
     rep["config"] = dict(
         workload=sc.name, topo=sc.topo, placement=sc.placement,
         routing=sc.routing, scale=sc.scale, seed=seed, ranks=rs.job_sizes,
-        start_us=[float(s) for s in (start_us if start_us is not None
-                                     else rs.start_us)],
+        start_us=[float(s) for s in rs.start_us],
         all_done=[
             bool(job_vm(state, ji).done.all()) for ji in range(len(rs.jobs))
         ],
