@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the simulator on one NVIDIA GPU, end to end.
+"""Drive the PyTorch port on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -7,27 +7,49 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; exits non-zero without them. Every phase prints one JSON line with
 its seconds, and any failure raises (non-zero exit, no result line):
 
-1. build ``src/repro_torch/kernels/csrc/drain_tick.cu`` for ``sm_90a``;
-   print the card's name and power limit, in the build line and on a
-   line of its own as ``nvidia-smi`` gives them;
+1. build the four CUDA sources of ``src/repro_torch/kernels/csrc/`` for
+   ``sm_90a``, one ``nvcc`` each, all started together; print each one's
+   ``-Xptxas -v`` report and the card's name and power limit, in the
+   build line and on a line of its own as ``nvidia-smi`` gives them;
 2. drain-tick kernel against its plain PyTorch version on the card at the
    paper's shapes (M = 65,536 and a ragged 65,573; K = 10; L+1 = 53,857
    and 73,921; B = 1 with a 1-D bandwidth row, B = 3 with per-member rows
    and dead links): new_rem, rate and delivered exact, the byte deltas to
    rtol 1e-5 (float atomics sum in another order); kernel and plain times
    by CUDA events, and the bound from the bytes the call must move;
-3. the two engine goldens of ``tests/data_engine_golden.json`` on the card;
-4. the paper-scale main path on the 1D dragonfly (Table II, 8,448 nodes;
+3. link-demand kernel against its plain version on a CPU copy at the
+   paper's shapes, bit for bit (the plain version sums serially only on
+   the CPU); times and the byte bound;
+4. SSD chunk-scan kernel against its plain version at the Mamba-2 prefill
+   shapes (8 requests x 32 heads, 32 chunks of 128, head 64, state 128),
+   and at a ragged length (4,000) through the mixer's padding, within
+   |kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain|; times and the bound
+   from the FLOPs and bytes the call needs;
+5. route-rate-drain kernel against its plain version at the paper's
+   shapes, bit for bit; times and the byte bound;
+6. the two engine goldens of ``tests/data_engine_golden.json`` on the card;
+7. the paper-scale simulator on the 1D dragonfly (Table II, 8,448 nodes;
    workload1 + UR, 65,536-message pool) through ``run_sim`` with the
    launch counts set to 0 just before and read just after; the rate is
    virtual milliseconds simulated per wall second (a tick's virtual time
    varies with the idle-time skip, and the host loop checks liveness once
-   per 64 ticks, so drain calls are not simulated work); the kernel
-   against the plain version on live pool states at sampled ticks; two
-   more runs with one seed must give one integer trajectory; a profile
-   of 20 ticks (device time by kernel, the device's busy share);
-5. the paper-scale 2D dragonfly (workload3) the same way, shorter;
-6. the kernel summary line, then the result line.
+   per 64 ticks, so drain calls are not simulated work); at sampled ticks
+   of a second run, the drain kernel against the plain version on the live
+   pool, and the link demand and UGAL route choices on the card against
+   the CPU's, bit for bit; two more runs with one seed must give one
+   integer trajectory; a profile of 20 ticks (device time by kernel, the
+   device's busy share);
+8. the paper-scale 2D dragonfly (workload3) the same way, shorter;
+9. Mamba-2 370M at full width (48 layers, seeded random weights, float32
+   weights, bfloat16 compute) through ``make_prefill_step`` on 8 requests
+   x 4,096 tokens, counted like the simulator: prefill tokens per second,
+   peak device memory, one scan launch per layer and step; then the
+   chunked forward's greedy tokens against token-by-token decode on
+   2 x 64 tokens, at least 95 % equal in float32 (and the bfloat16 figure);
+10. the port's serve loop (4 slots, 8 requests, prompt 16, 24 generated
+   tokens): served tokens, decode tokens per second; a profile of one
+   decode step;
+11. the kernel summary line, then the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``).
 """
@@ -46,8 +68,16 @@ GOLDEN = os.path.join(ROOT, "tests", "data_engine_golden.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
-PAPER_1D = dict(workload="workload1", topo="1d", horizon_ms=10.0)
-PAPER_2D = dict(workload="workload3", topo="2d", horizon_ms=6.0)
+PAPER_1D = dict(workload="workload1", topo="1d", scale="paper",
+                horizon_ms=10.0)
+PAPER_2D = dict(workload="workload3", topo="2d", scale="paper",
+                horizon_ms=6.0)
+KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan")
+# the SSD kernel's tolerance against its plain version: an output sums
+# Q * ds = 16,384 float32 products whose partial sums are as large as the
+# largest output, so rounding error scales with max|plain|
+SSD_RTOL, SSD_ATOL_OF_MAX = 1e-4, 1e-5
+LM_ARCH = "mamba2_370m"
 
 
 def emit(obj) -> None:
@@ -218,7 +248,207 @@ def phase_kernel(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: engine goldens on the card
+# phase 3: the link-demand kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_link_demand(dev):
+    """The link-demand kernel at the paper's pool and link shapes against
+    its plain version on a CPU copy (serial sums there), bit for bit; the
+    remaining bytes span six orders of magnitude so that another order
+    shows. Times: the kernel (sort, run starts, serial sums) and the plain
+    version on the card by CUDA events, and ``index_put_(accumulate=True)``
+    over the flat entries as the one library call that takes these sums
+    (in another order); the bound is the bytes the call must move."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.link_demand import (
+        link_demand_cuda, link_demand_plain)
+
+    t0 = time.perf_counter()
+    rows = []
+    for i, (M, L) in enumerate(((65536, 53856), (65573, 73920))):
+        rng = np.random.default_rng(300 + i)
+        routes = np.where(rng.random((1, M, 10)) < 0.1,
+                          rng.integers(0, 8, size=(1, M, 10)),
+                          rng.integers(-1, L, size=(1, M, 10)))
+        routes = routes.astype(np.int32)
+        host = [torch.as_tensor(a) for a in (
+            routes, rng.random((1, M)) < 0.5,
+            (10.0 ** rng.uniform(0, 6, (1, M))).astype(np.float32))]
+        args = [a.to(dev) for a in host]
+        got = link_demand_cuda(*args, L)
+        want = link_demand_plain(*host, L)
+        torch.cuda.synchronize()
+        need(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+             f"link_demand: kernel != serial plain sums at M={M}, L={L}")
+        on_card_plain = link_demand_plain(*args, L).cpu()
+        flat = (torch.where(args[0] >= 0, args[0], L).long()
+                .reshape(-1))
+        vals = (args[2][:, :, None] * ((args[0] >= 0) & args[1][:, :, None])
+                ).reshape(-1)
+        moved = sum(a.numel() * a.element_size() for a in args) + (L + 1) * 4
+        rows.append(dict(
+            M=M, L=L, exact=True,
+            plain_on_card_sums_differing=int(
+                (on_card_plain.view(torch.int32)
+                 != want.view(torch.int32)).sum()),
+            kernel_ms=device_ms(lambda: link_demand_cuda(*args, L)),
+            kernel_call_ms=time_ms(lambda: link_demand_cuda(*args, L)),
+            plain_ms=time_ms(lambda: link_demand_plain(*args, L)),
+            library_ms=time_ms(lambda: torch.zeros(
+                L + 1, device=dev).index_put_((flat,), vals,
+                                              accumulate=True)),
+            bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=moved))
+    emit(dict(phase="link_demand_vs_plain", seconds=time.perf_counter() - t0,
+              cases=rows))
+    return rows[0]
+
+# ---------------------------------------------------------------------------
+# phase 4: the SSD chunk scan against its plain version
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(BH, G, nc, Q, hd, ds, seed, dev):
+    """numpy-seeded scan inputs: x ~ N(0,1), dt = softplus(N(0,1) - 2),
+    A = -exp(N(0,1)), B and C ~ N(0,1) for G groups of rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    xs = (rng.standard_normal((BH, nc, Q, hd)).astype(f32),
+          np.log1p(np.exp(rng.standard_normal((BH, nc, Q)) - 2.0)).astype(f32),
+          (-np.exp(rng.standard_normal(BH))).astype(f32),
+          rng.standard_normal((G, nc, Q, ds)).astype(f32),
+          rng.standard_normal((G, nc, Q, ds)).astype(f32))
+    return [torch.as_tensor(x, device=dev) for x in xs]
+
+
+def ssd_check(got, want, what):
+    """|got - want| <= SSD_RTOL |want| + SSD_ATOL_OF_MAX max|want|; returns
+    the largest absolute difference."""
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    ok = bool((err <= SSD_RTOL * want.abs() + SSD_ATOL_OF_MAX * scale).all())
+    need(ok and bool(got.isfinite().all()),
+         f"ssd_scan {what}: kernel vs plain beyond rtol {SSD_RTOL} + "
+         f"{SSD_ATOL_OF_MAX} * {scale} (max abs diff {float(err.max())})")
+    return float(err.max())
+
+
+def ssd_bound_ms(x, Bm):
+    """The least time for one scan: the causal half of C Bᵀ once per group
+    and chunk, the causal half of its product with x·dt, C h and the state
+    update per row and chunk, at the float32 rate (no tensor cores), against
+    each input read once and y and h written once; the larger of the two."""
+    BH, nc, Q, hd = x.shape
+    G, ds = Bm.shape[0], Bm.shape[-1]
+    tri = Q * (Q + 1) // 2
+    flops = (G * nc * tri * 2 * ds
+             + BH * nc * (tri * 2 * hd + 2 * Q * 2 * ds * hd))
+    moved = 4 * (2 * BH * nc * Q * hd + BH * nc * Q + BH
+                 + 2 * G * nc * Q * ds + BH * ds * hd)
+    by_ops = flops / FP32_OPS_PER_S * 1e3
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes
+            else "bytes", flops, moved)
+
+
+def phase_ssd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
+    """The defaults are the prefill step's shapes: 8 requests x 32 heads,
+    4,096 tokens; ``Sr`` is the ragged length."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    t0 = time.perf_counter()
+    args = ssd_inputs(B * nh, B, S // Q, Q, hd, ds, 7, dev)
+    yk, hk = ssd_scan_cuda(*args)
+    yp, hp = ssd_scan_plain(*args)
+    torch.cuda.synchronize()
+    err_y = ssd_check(yk, yp, "y")
+    err_h = ssd_check(hk, hp, "h")
+    del yk, hk, yp, hp
+    kernel_ms = time_ms(lambda: ssd_scan_cuda(*args), reps=10, warmup=2)
+    plain_ms = time_ms(lambda: ssd_scan_plain(*args), reps=5, warmup=1)
+    bound_ms, bound_by, flops, moved = ssd_bound_ms(args[0], args[3])
+
+    # a ragged length through the mixer's padding (4,000 -> 32 chunks of
+    # 128, the last one padded with dt = 0): all 8 rows on the card, batch
+    # row 0 against the plain scan on the CPU
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    f32 = np.float32
+    dt = np.log1p(np.exp(rng.standard_normal((B, Sr, nh)) - 2.0))
+    raw = (rng.standard_normal((B, Sr, nh, hd)).astype(f32), dt.astype(f32),
+           (-np.exp(rng.standard_normal(nh))).astype(f32),
+           rng.standard_normal((B, Sr, ds)).astype(f32),
+           rng.standard_normal((B, Sr, ds)).astype(f32),
+           rng.standard_normal(nh).astype(f32))
+    on = [torch.as_tensor(a, device=dev) for a in raw]
+    yr = ssd_chunked(*on, chunk=Q)
+    torch.cuda.synchronize()
+    cpu0 = [torch.as_tensor(a[:1] if a.ndim > 1 else a) for a in raw]
+    want = ssd_chunked(*cpu0, chunk=Q)
+    need(tuple(yr.shape) == (B, Sr, nh, hd), f"ssd_chunked shape {yr.shape}")
+    err_r = ssd_check(yr[:1].cpu(), want, f"ragged S={Sr}")
+    emit(dict(phase="ssd_scan_vs_plain", seconds=time.perf_counter() - t0,
+              BH=B * nh, groups=B, nc=S // Q, Q=Q, hd=hd, ds=ds,
+              max_abs_err_y=err_y, max_abs_err_h=err_h,
+              max_abs_err_ragged=err_r, ragged_S=Sr,
+              rtol=SSD_RTOL, atol_of_max=SSD_ATOL_OF_MAX,
+              kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, gflop=flops / 1e9, bytes=moved))
+    return dict(max_abs_err=max(err_y, err_h, err_r), ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the route-rate-drain against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_router(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.router_tick import (
+        router_rate_drain_cuda, router_rate_drain_plain)
+
+    t0 = time.perf_counter()
+    rows = []
+    for i, (M, L) in enumerate(((65536, 53857), (65573, 73921))):
+        rng = np.random.default_rng(200 + i)
+        args = [torch.as_tensor(a, device=dev) for a in (
+            rng.integers(-1, L, size=(M, 10), dtype=np.int32),
+            (rng.random(M, dtype=np.float32) * 1e5).astype(np.float32),
+            rng.random(M) < 0.5,
+            (rng.random(L, dtype=np.float32) * 1e3 + 1.0).astype(np.float32))]
+        k = router_rate_drain_cuda(*args, 5.0)
+        p = router_rate_drain_plain(*args, 5.0)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("new_rem", "rate", "drained"), k, p):
+            need(torch.equal(a, b),
+                 f"router_rate_drain {name}: kernel != plain")
+        moved = sum(a.numel() * a.element_size() for a in args) + M * 9
+        rows.append(dict(
+            M=M, L=L,
+            max_abs_err=max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(k, p)),
+            kernel_ms=device_ms(lambda: router_rate_drain_cuda(*args, 5.0)),
+            kernel_call_ms=time_ms(lambda: router_rate_drain_cuda(*args, 5.0)),
+            plain_ms=time_ms(lambda: router_rate_drain_plain(*args, 5.0)),
+            bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=moved))
+    emit(dict(phase="router_rate_drain_vs_plain",
+              seconds=time.perf_counter() - t0, exact=True, cases=rows))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: engine goldens on the card
 # ---------------------------------------------------------------------------
 
 PP = (
@@ -328,7 +558,7 @@ def phase_goldens(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: paper-scale main path
+# phases 7-8: paper-scale simulator
 # ---------------------------------------------------------------------------
 
 TRAJECTORY = ("t", "rng", "lat_cnt", "pc", "send_done", "recv_done",
@@ -367,10 +597,55 @@ def live_drain_args(st, rs, dev):
             ldr)
 
 
-def profile_ticks(eng, st, n=20):
-    """Device time by kernel over ``n`` ticks (torch.profiler, CUPTI) and
-    the device's busy share of the wall time; the profiler's own cost is
-    in the wall time. Returns the state after the ticks and the summary."""
+def route_parity(st, rs, dev, seed, n=65536):
+    """The link demand that UGAL compares and the routes it picks, on the
+    card against the CPU, for a live member state: the link-demand kernel
+    sums the pool on the card, its plain version sums a CPU copy serially
+    in the reference's order, and ``n`` seeded (source, destination, rand)
+    triples are routed adaptively against each side's demand. Demand sums
+    must be equal bit for bit, routes and hop counts exactly. Returns what
+    was compared."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.netsim.fabric import routing_tables
+
+    topo = rs.topo
+    L = topo.n_links
+    p = st.pool
+    on_card = [x[None] for x in (p.routes, p.active, p.bytes_rem)]
+    card = ops.link_demand(*on_card, L)  # the kernel
+    host = ops.link_demand(*[x.cpu() for x in on_card], L)  # serial, CPU
+    card_h = card.cpu()
+    same = card_h.view(torch.int32) == host.view(torch.int32)
+    need(bool(same.all()),
+         f"link demand: {int((~same).sum())} of {same.numel()} sums differ "
+         "between the card and the CPU")
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, topo.n_nodes, n, dtype=np.int64)
+    dst = rng.integers(0, topo.n_nodes, n, dtype=np.int64)
+    rand = rng.integers(0, 2**31, n, dtype=np.int64)
+    out = {}
+    for where, demand in (("card", card), ("cpu", host)):
+        T, route_fn = routing_tables(topo, demand.device)
+        on = [torch.as_tensor(a, device=demand.device)
+              for a in (src, dst, rand)]
+        routes, hops = route_fn(T, *on, demand.reshape(-1), True)
+        minimal, _ = route_fn(T, *on, demand.reshape(-1), False)
+        out[where] = (routes.cpu(), hops.cpu(), minimal.cpu())
+    (rc, hc, mc), (rh, hh, _) = out["card"], out["cpu"]
+    need(torch.equal(rc, rh) and torch.equal(hc, hh),
+         f"UGAL routes: {int((rc != rh).any(1).sum())} of {n} differ between "
+         "the card and the CPU")
+    return dict(links_with_demand=int((host > 0).sum()), routed=n,
+                nonminimal=int((rc != mc).any(1).sum()))
+
+
+def device_profile(fn):
+    """Run ``fn`` under torch.profiler (CUPTI): the wall microseconds and
+    the device kernels as (self device us, calls, name), largest first.
+    The profiler's own cost is in the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,8 +653,7 @@ def profile_ticks(eng, st, n=20):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            st = eng.tick(st)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -390,14 +664,29 @@ def profile_ticks(eng, st, n=20):
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
+    return out, wall_us, rows
+
+
+def profile_ticks(eng, st, n=20):
+    """Device time by kernel over ``n`` ticks and the device's busy share
+    of the wall time. Returns the state after the ticks and the summary."""
+    def ticks():
+        s = st
+        for _ in range(n):
+            s = eng.tick(s)
+        return s
+
+    st, wall_us, rows = device_profile(ticks)
     busy_us = sum(r[0] for r in rows)
     drain_us = sum(r[0] for r in rows
                    if "drain_kernel" in r[2] or "count_kernel" in r[2])
+    demand_us = sum(r[0] for r in rows if "serial_run_sum_kernel" in r[2])
     return st, dict(
         ticks=n, wall_ms_per_tick=wall_us / n / 1e3,
         device_ms_per_tick=busy_us / n / 1e3,
         device_busy_share=busy_us / wall_us,
         drain_kernels_us_per_tick=drain_us / n,
+        link_demand_kernel_us_per_tick=demand_us / n,
         device_kernels_per_tick=sum(r[1] for r in rows) / n,
         top=[dict(name=k[:70], us_per_tick=us / n, calls_per_tick=c / n)
              for us, c, k in rows[:8]],
@@ -414,7 +703,7 @@ def phase_paper(name, cfg, dev):
     from repro_torch.union.scenario import mix_scenario
     from repro_torch.union.seeds import engine_seed
 
-    kw = dict(scale="paper", seed=0, horizon_ms=cfg["horizon_ms"],
+    kw = dict(scale=cfg["scale"], seed=0, horizon_ms=cfg["horizon_ms"],
               tick_us=5.0)
     # the main path, counted: counts set to 0 just before, read just after
     torch.cuda.synchronize()
@@ -430,34 +719,44 @@ def phase_paper(name, cfg, dev):
     need(launches > 0, f"{name}: the drain kernel was never launched")
     need(launches == calls,
          f"{name}: {launches} kernel launches for {calls} drain calls")
+    demand_launches = ops.LAUNCHES["link_demand"]
+    need(demand_launches == ops.CALLS["link_demand"] == calls,
+         f"{name}: {demand_launches} link-demand launches for "
+         f"{ops.CALLS['link_demand']} calls and {calls} ticks")
     need(rep["dropped"] == 0, f"{name}: {rep['dropped']} messages dropped")
     delivered = {app: v.get("count", 0) for app, v in rep["latency"].items()}
 
     # the same scenario again through the manager: the kernel against its
-    # plain version on live pool states at sampled ticks, then the rest of
-    # the run; a third run must end in the same integer trajectory
-    sc = mix_scenario(cfg["workload"], topo=cfg["topo"], scale="paper",
+    # plain version, and demand sums and routes against the CPU's, on live
+    # pool states at sampled ticks, then the rest of the run; a third run
+    # must end in the same integer trajectory
+    sc = mix_scenario(cfg["workload"], topo=cfg["topo"], scale=cfg["scale"],
                       placement="RG", routing="ADP", tick_us=5.0,
                       horizon_ms=cfg["horizon_ms"])
     rs = MGR.resolve(sc, seed=0)
     eng = MGR.build(rs, device=dev)
     n_apps = len(rs.padded_app_names(rs.capacity))
     st = eng.init_state(seed=engine_seed(0))
-    samples = sorted({int(x) for x in np.linspace(10, calls - 10, 5)})
+    # five sample points spread over the run; a point whose pool is empty
+    # moves on to the next tick with messages in flight
+    targets = sorted({int(x) for x in np.linspace(10, calls - 10, 5)})
     sampled = []
     i = 0
-    while i <= samples[-1]:
-        if i == samples[0] + 1:  # profile 20 ticks early in the run
+    while i < calls and len(sampled) < len(targets):
+        if i == targets[0] + 1:  # profile 20 ticks early in the run
             st, prof = profile_ticks(eng, st)
             i += prof["ticks"]
             continue
         st = eng.tick(st)
-        if i in samples:
+        if i >= targets[len(sampled)] and bool(st.pool.active.any()):
             args = live_drain_args(st, rs, dev)
             err = compare_drain(args, n_apps, rs.topo.n_routers)
             sampled.append(dict(tick=i, active=int(st.pool.active.sum()),
-                                max_abs_err=err))
+                                max_abs_err=err,
+                                route_parity=route_parity(st, rs, dev, i)))
         i += 1
+    need(len(sampled) >= 2, f"{name}: only {len(sampled)} sampled ticks had "
+         "messages in flight")
     second = trajectory(eng.run(st))
     third = trajectory(eng.run(eng.init_state(seed=engine_seed(0))))
     for k in TRAJECTORY:
@@ -476,11 +775,143 @@ def phase_paper(name, cfg, dev):
               links=rs.topo.n_links, pool=rs.pool_size,
               virtual_time_ms=rep["virtual_time_ms"], wall_s=wall,
               virtual_ms_per_wall_s=rep["virtual_time_ms"] / wall,
-              drain_calls=calls, drain_launches=launches, dropped=rep["dropped"],
+              drain_calls=calls, drain_launches=launches,
+              link_demand_launches=demand_launches, dropped=rep["dropped"],
               peak_device_mib=peak_mib, delivered=delivered,
               sampled_ticks=sampled, identical_reruns=True,
               profile=prof))
-    return rep, launches, calls, delivered
+    return rep, dict(drain_tick=launches, link_demand=demand_launches), \
+        delivered
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: Mamba-2 serving
+# ---------------------------------------------------------------------------
+
+def agreement(params, cfg, tokens, dev):
+    """Share of positions where the chunked forward's greedy token equals
+    the one token-by-token decode gives (the check tests/test_models.py
+    applies to the JAX package)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MDL
+
+    h, _ = MDL.forward_hidden(params, tokens, cfg)
+    need(bool(h.float().isfinite().all()), f"{cfg.compute_dtype}: hidden "
+         "state not finite")
+    full = torch.argmax(L.mask_padded_vocab(
+        L.logits_from_hidden(params, h, cfg).float(), cfg), dim=-1)
+    state = MDL.init_decode_state(cfg, tokens.shape[0], tokens.shape[1],
+                                  dtype=torch.float32, device=dev)
+    preds = []
+    for t in range(tokens.shape[1]):
+        nxt, state = MDL.decode_step(params, state, tokens[:, t], cfg)
+        preds.append(nxt)
+    return float((torch.stack(preds, 1) == full).float().mean())
+
+
+def phase_lm_prefill(dev, steps=3):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MDL
+    from repro_torch.train.serve_step import make_prefill_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    params = MDL.init_model(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    B, S = 8, 4096
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32), device=dev)
+    prefill = make_prefill_step(cfg)
+    prefill(params, tokens)  # warm-up: cuBLAS handles, allocator
+    # the main path, counted: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    walls = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        out = prefill(params, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    launches, calls = ops.LAUNCHES["ssd_scan"], ops.CALLS["ssd_scan"]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    need(launches == calls == cfg.n_layers * steps,
+         f"lm_prefill: {launches} scan launches for {calls} calls, want "
+         f"{cfg.n_layers} a step")
+    need(tuple(out.shape) == (B,) and out.dtype == torch.int32
+         and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+         f"lm_prefill: tokens {out}")
+    step_s = sorted(walls)[len(walls) // 2]
+    _, wall_us, rows = device_profile(lambda: prefill(params, tokens))
+    busy_us = sum(r[0] for r in rows)
+    scan_us = sum(r[0] for r in rows if "ssd_scan_kernel" in r[2])
+    prof = dict(wall_ms=wall_us / 1e3, device_ms=busy_us / 1e3,
+                device_busy_share=busy_us / wall_us,
+                ssd_scan_share_of_device=scan_us / busy_us,
+                device_kernels=sum(r[1] for r in rows),
+                top=[dict(name=k[:70], ms=us / 1e3, calls=c)
+                     for us, c, k in rows[:10]])
+
+    # forward vs decode on the card, float32 compute (the same weights)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64), dtype=np.int32), device=dev)
+    agree32 = agreement(params, cfg.replace(compute_dtype="float32"), toks,
+                        dev)
+    need(agree32 >= 0.95, f"lm_prefill: forward/decode agreement {agree32} "
+         "below 0.95 in float32")
+    agree16 = agreement(params, cfg, toks, dev)
+    emit(dict(phase="lm_prefill", seconds=time.perf_counter() - t0,
+              arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+              params=n_params, param_dtype=cfg.param_dtype,
+              compute_dtype=cfg.compute_dtype, batch=B, seq=S, steps=steps,
+              step_s=walls, prefill_tokens_per_s=B * S / step_s,
+              ssd_scan_calls=calls, ssd_scan_launches=launches,
+              peak_device_mib=peak_mib, first_tokens=out.tolist(),
+              profile=prof,
+              agreement_f32=agree32, agreement_bf16=agree16))
+    return params, cfg, launches
+
+
+def phase_lm_serve(params, cfg, dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.train.serve_step import make_decode_state, make_decode_step
+
+    t0 = time.perf_counter()
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (8, 16), dtype=np.int32)
+    serve(params, cfg, prompts[:1], slots=4, gen_len=2, device=dev)  # warm-up
+    outputs, st = serve(params, cfg, prompts, slots=4, gen_len=24, device=dev)
+    need(sorted(outputs) == list(range(8))
+         and all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v)
+                 for v in outputs.values()), "lm_serve: outputs")
+    # one decode step of 4 slots under the profiler
+    state = make_decode_state(cfg, 4, 40, dtype=torch.float32, device=dev)
+    tok = torch.as_tensor(prompts[:4, 0], device=dev)
+    step = make_decode_step(cfg)
+    step(params, state, tok)
+    _, wall_us, rows = device_profile(lambda: step(params, state, tok))
+    busy_us = sum(r[0] for r in rows)
+    prof = dict(wall_ms=wall_us / 1e3, device_ms=busy_us / 1e3,
+                device_busy_share=busy_us / wall_us,
+                device_kernels=sum(r[1] for r in rows),
+                top=[dict(name=k[:70], ms=us / 1e3, calls=c)
+                     for us, c, k in rows[:5]])
+    emit(dict(phase="lm_serve", seconds=time.perf_counter() - t0,
+              slots=4, requests=st["requests"], prompt_len=16, gen_len=24,
+              waves=st["waves"], decode_steps=st["decode_steps"],
+              served_tokens=st["tokens"], wall_s=st["wall_s"],
+              served_tokens_per_s=st["tokens"] / st["wall_s"],
+              decode_tokens_per_s=st["decode_steps"] * 4 / st["wall_s"],
+              first_request=outputs[0], decode_step_profile=prof))
 
 
 def main() -> int:
@@ -496,39 +927,70 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
 
+    # float32 products in full float32 (the kernels' plain versions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    _build.load("drain_tick")
+    _build.load_all(KERNEL_SOURCES)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip()
     emit(dict(phase="build", seconds=time.perf_counter() - t0, card=card,
               torch=torch.__version__, cuda=torch.version.cuda,
-              compiler_output=_build.BUILD_LOG["drain_tick"]
-              ["compiler_output"].strip().splitlines()))
+              compiler_output={
+                  k: _build.BUILD_LOG[k]["compiler_output"].strip()
+                  .splitlines() for k in KERNEL_SOURCES}))
     print(card, flush=True)
 
     rows, max_err = phase_kernel(dev)
+    dem = phase_link_demand(dev)
+    ssd = phase_ssd(dev)
+    rtr = phase_router(dev)
     phase_goldens(dev)
-    _rep1, launches1, calls1, delivered1 = phase_paper(
-        "paper_1d", PAPER_1D, dev)
+    _rep1, launches1, delivered1 = phase_paper("paper_1d", PAPER_1D, dev)
     for app in ("alexnet", "lammps", "nn", "ur"):
         need(delivered1.get(app, 0) > 0, f"paper_1d: {app} delivered nothing")
     phase_paper("paper_2d", PAPER_2D, dev)
+    params, cfg, ssd_launches = phase_lm_prefill(dev)
+    phase_lm_serve(params, cfg, dev)
 
     main_row = rows[0]
-    emit({"kernels": [dict(
-        name="drain_tick", route="cuda",
-        source="src/repro_torch/kernels/csrc/drain_tick.cu",
-        replaces="src/repro/kernels/drain_tick.py:131",
-        tpu="src/repro/kernels/drain_tick.py::drain_tick_pallas",
-        launches=launches1, max_abs_err=max_err,
-        ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None, kernel_ms=main_row["kernel_ms"],
-        bound_us=main_row["bound_ms"] * 1e3,
-    )]})
+    emit({"kernels": [
+        dict(name="drain_tick", route="cuda",
+             source="src/repro_torch/kernels/csrc/drain_tick.cu",
+             replaces="src/repro/kernels/drain_tick.py:131",
+             tpu="src/repro/kernels/drain_tick.py::drain_tick_pallas",
+             launches=launches1["drain_tick"], max_abs_err=max_err,
+             ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
+             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+             library_ms=None),
+        dict(name="link_demand", route="cuda",
+             source="src/repro_torch/kernels/csrc/link_demand.cu",
+             replaces="src/repro/netsim/engine.py:805",
+             tpu=None,  # the reference's jnp scatter-add, not a TPU kernel
+             launches=launches1["link_demand"], max_abs_err=0.0,
+             ms=dem["kernel_ms"], plain_ms=dem["plain_ms"],
+             bound_ms=dem["bound_ms"], bound_by=dem["bound_by"],
+             library_ms=dem["library_ms"]),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:59",
+             tpu="src/repro/kernels/ssd_scan.py::ssd_scan_pallas",
+             launches=ssd_launches, max_abs_err=ssd["max_abs_err"],
+             ms=ssd["ms"], plain_ms=ssd["plain_ms"],
+             bound_ms=ssd["bound_ms"], bound_by=ssd["bound_by"],
+             library_ms=None),
+        dict(name="router_rate_drain", route="cuda",
+             source="src/repro_torch/kernels/csrc/router_tick.cu",
+             replaces="src/repro/kernels/router_tick.py:48",
+             tpu="src/repro/kernels/router_tick.py::router_rate_drain_pallas",
+             launches=0, max_abs_err=max(r["max_abs_err"] for r in rtr),
+             ms=rtr[0]["kernel_ms"], plain_ms=rtr[0]["plain_ms"],
+             bound_ms=rtr[0]["bound_ms"], bound_by=rtr[0]["bound_by"],
+             library_ms=None),
+    ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

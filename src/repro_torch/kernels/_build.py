@@ -6,6 +6,12 @@ loaded with :mod:`ctypes` (a plain C interface: no PyTorch headers, so a
 build takes seconds). ``<hash>`` is a content hash of the source and the
 compiler flags, so an edited source rebuilds and an unchanged one is
 loaded as it is. A failed build raises; nothing falls back.
+
+Every source gets :data:`NVCC_FLAGS`. A source adds its own flags on a
+line of its own that starts with ``// nvcc-flags:`` (the drain tick asks
+for ``--fmad=false`` there); they are part of the hash.
+:func:`load_all` starts one ``nvcc`` per source, all at once.
+:func:`ptr` and :func:`check_tensor` serve the ctypes wrappers.
 """
 from __future__ import annotations
 
@@ -17,14 +23,17 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+FLAGS_TAG = "// nvcc-flags:"
 
 
 class KernelBuildError(RuntimeError):
@@ -49,39 +58,86 @@ def _nvcc() -> str:
         "port's CUDA kernels are built from source at first use")
 
 
+def source_flags(name: str) -> Tuple[str, ...]:
+    """The flags ``csrc/<name>.cu`` is compiled with: the common set, then
+    those of the source's own ``// nvcc-flags:`` lines."""
+    own = []
+    for line in (CSRC / f"{name}.cu").read_text().splitlines():
+        if line.startswith(FLAGS_TAG):
+            own.extend(line[len(FLAGS_TAG):].split())
+    return NVCC_FLAGS + tuple(own)
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to, keyed by its content hash."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(source_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """The libraries built from ``csrc/<name>.cu`` for every name; the
+    sources not yet built are compiled by one ``nvcc`` each, all started
+    together. Raises on the first build that failed."""
+    names = list(dict.fromkeys(names))
+    todo = [n for n in names if n not in _LIBS]
+    t0 = time.perf_counter()
+    jobs = {}
+    try:
+        for name in todo:
+            out = library_path(name)
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *source_flags(name), "-o", tmp,
+                   str(CSRC / f"{name}.cu")]
+            jobs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = {}
+        for name, (tmp, proc) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                    f"{log}")
+            os.replace(tmp, library_path(name))
+            logs[name] = log
+    finally:
+        for tmp, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    for name in todo:
+        out = library_path(name)
+        _LIBS[name] = ctypes.CDLL(str(out))
+        BUILD_LOG[name] = dict(path=str(out),
+                               seconds=time.perf_counter() - t0,
+                               compiler_output=logs.get(name, ""))
+    return {n: _LIBS[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, compiled if not cached."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    out = library_path(name)
-    t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed on {name}.cu (exit {res.returncode}):\n"
-                    f"{res.stdout}\n{res.stderr}")
-            log = res.stdout + res.stderr
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(out))
-    BUILD_LOG[name] = dict(path=str(out), seconds=time.perf_counter() - t0,
-                           compiler_output=log)
-    _LIBS[name] = lib
-    return lib
+    return load_all([name])[name]
+
+
+def ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    """A tensor's device address as a ctypes argument."""
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def check_tensor(kernel: str, x: torch.Tensor, name: str, dtype, shape,
+                 device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel takes as a raw pointer."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or x.device != device or not x.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} tensor of "
+            f"shape {tuple(shape)} on {device}; got {x.dtype} "
+            f"{tuple(x.shape)} on {x.device}")

@@ -37,6 +37,8 @@
 // float result is the correctly rounded IEEE value the reference computes.
 // The delivery threshold is the float literal 1e-6f: with a double literal
 // the compare would run in double and deliver on another tick.
+//
+// nvcc-flags: --fmad=false
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -69,17 +69,8 @@ def drain_tick_plain(routes, bytes_rem, active, job, min_arrive, t, dt,
     return new_rem, rate, delivered, link_bytes_delta, router_win_delta
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or x.device != device or not x.is_contiguous():
-        raise ValueError(
-            f"drain_tick: {name} must be a contiguous {dtype} tensor of "
-            f"shape {tuple(shape)} on {device}; got {x.dtype} "
-            f"{tuple(x.shape)} on {x.device}")
+def _check(x, name, dtype, shape, device):
+    _build.check_tensor("drain_tick", x, name, dtype, shape, device)
 
 
 @functools.cache
@@ -133,13 +124,13 @@ def drain_tick_cuda(routes, bytes_rem, active, job, min_arrive, t, dt,
     lb = torch.empty((B, Lp), dtype=torch.float32, device=dev)
     rw = torch.empty((B, A, R), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    p = _build.ptr
     err = launch(
-        _ptr(routes), _ptr(bytes_rem), _ptr(active), _ptr(job),
-        _ptr(min_arrive), _ptr(t), ctypes.c_float(float(dt)), _ptr(bw_eff),
-        ctypes.c_int64(bw_stride), _ptr(link_dst_router),
-        B, M, K, Lp, A, R,
-        _ptr(count), _ptr(new_rem), _ptr(rate), _ptr(delivered), _ptr(lb),
-        _ptr(rw), ctypes.c_void_p(stream),
+        p(routes), p(bytes_rem), p(active), p(job), p(min_arrive), p(t),
+        ctypes.c_float(float(dt)), p(bw_eff), ctypes.c_int64(bw_stride),
+        p(link_dst_router), B, M, K, Lp, A, R,
+        p(count), p(new_rem), p(rate), p(delivered), p(lb), p(rw),
+        ctypes.c_void_p(stream),
     )
     if err != 0:
         msg = error_string(err).decode()

@@ -6,23 +6,41 @@ raise. There is no fallback from the kernel to the plain version.
 
 ``CALLS`` counts, per wrapper, every call; ``LAUNCHES`` counts the calls
 that launched the kernel (a drain-tick call is two CUDA launches: count,
-then drain). A run on the card that went through the kernel every time
-shows ``LAUNCHES == CALLS``; :func:`reset_launches` sets every count to 0.
+then drain; the other wrappers launch one kernel a call). A run on the
+card that went through the kernel every time shows ``LAUNCHES == CALLS``;
+:func:`reset_launches` sets every count to 0.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
+from repro_torch.kernels.link_demand import (
+    link_demand_cuda, link_demand_plain)
+from repro_torch.kernels.router_tick import (
+    router_rate_drain_cuda, router_rate_drain_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-CALLS: Dict[str, int] = {"drain_tick": 0}
-LAUNCHES: Dict[str, int] = {"drain_tick": 0}
+KERNELS = ("drain_tick", "link_demand", "router_rate_drain", "ssd_scan")
+CALLS: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         CALLS[k] = 0
         LAUNCHES[k] = 0
+
+
+def _dispatch(name, device, plain, cuda, *args):
+    """Count the call; the plain version for CPU tensors, else the kernel
+    (counted as a launch)."""
+    CALLS[name] += 1
+    if device.type == "cpu":
+        return plain(*args)
+    out = cuda(*args)
+    LAUNCHES[name] += 1
+    return out
 
 
 def drain_tick(routes, bytes_rem, active, job, min_arrive, t, dt, bw_eff,
@@ -33,15 +51,39 @@ def drain_tick(routes, bytes_rem, active, job, min_arrive, t, dt, bw_eff,
     ``bw_eff`` is ``(L+1,)`` or per-member ``(B, L+1)``. See
     :mod:`repro_torch.kernels.drain_tick` for shapes and results.
     """
-    CALLS["drain_tick"] += 1
-    if routes.device.type == "cpu":
-        return drain_tick_plain(
-            routes, bytes_rem, active, job, min_arrive, t, dt, bw_eff,
-            link_dst_router, n_apps, n_routers,
-        )
-    out = drain_tick_cuda(
-        routes, bytes_rem, active, job, min_arrive, t, dt, bw_eff,
-        link_dst_router, n_apps, n_routers,
-    )
-    LAUNCHES["drain_tick"] += 1
-    return out
+    return _dispatch("drain_tick", routes.device, drain_tick_plain,
+                     drain_tick_cuda, routes, bytes_rem, active, job,
+                     min_arrive, t, dt, bw_eff, link_dst_router, n_apps,
+                     n_routers)
+
+
+def link_demand(routes, active, bytes_rem, n_links: int):
+    """(B, L+1) bytes outstanding per link of the active messages, summed
+    serially in flat index order on every device (UGAL compares them).
+    See :mod:`repro_torch.kernels.link_demand`."""
+    return _dispatch("link_demand", routes.device, link_demand_plain,
+                     link_demand_cuda, routes, active, bytes_rem, n_links)
+
+
+def router_rate_drain(routes, bytes_rem, active, share, dt):
+    """Route-rate-drain of one member's pool against a share table.
+
+    Same arguments as the JAX package's ``kernels.ops.router_rate_drain``
+    (without its kernel switches): routes (M, K) int32, bytes_rem (M,) f32,
+    active (M,) bool, share (L,) f32, dt scalar. Returns (new_rem, rate,
+    drained). See :mod:`repro_torch.kernels.router_tick`.
+    """
+    return _dispatch("router_rate_drain", routes.device,
+                     router_rate_drain_plain, router_rate_drain_cuda,
+                     routes, bytes_rem, active, share, dt)
+
+
+def ssd_scan(x, dt, A, Bm, Cm):
+    """Head-flattened SSD chunk scan: (y, final state).
+
+    The JAX package's ``kernels.ops.ssd_scan`` with B/C given per group of
+    rows (one group per row there); see :mod:`repro_torch.kernels.ssd_scan`
+    for shapes.
+    """
+    return _dispatch("ssd_scan", x.device, ssd_scan_plain, ssd_scan_cuda,
+                     x, dt, A, Bm, Cm)

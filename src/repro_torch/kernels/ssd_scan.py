@@ -1,0 +1,120 @@
+"""The Mamba-2 SSD chunk scan: plain PyTorch and CUDA kernel.
+
+For each (batch * head) row, over its chunks in order, with h the state
+entering a chunk and cs = cumsum(dt * A) over the chunk's Q steps::
+
+    y = (C Bᵀ ∘ L) (x·dt)  +  (C h) ∘ exp(cs)        L[t,s] = exp(cs_t - cs_s), s <= t
+    h ← h·exp(cs[-1]) + Bᵀ ((x·dt) ∘ exp(cs[-1] - cs))
+
+* :func:`ssd_scan_plain` is ``repro.kernels.ref.ssd_chunk_ref`` of the JAX
+  package in PyTorch, batched over the rows with a loop over the chunks.
+  The CPU path and the tests use it; on the card it is the kernel's
+  yardstick of correctness.
+* :func:`ssd_scan_cuda` launches ``csrc/ssd_scan.cu`` (built at first use
+  by :mod:`repro_torch.kernels._build`), which replaces the TPU kernel
+  ``src/repro/kernels/ssd_scan.py::ssd_scan_pallas``. The source's header
+  note gives its design and its bound on an H100.
+
+Shapes (all float32): x (BH, nc, Q, hd); dt (BH, nc, Q); A (BH,);
+Bm, Cm (G, nc, Q, ds) with G dividing BH: row ``bh`` reads group
+``bh // (BH // G)``. The JAX package passes one group per row (G = BH);
+the Mamba-2 mixer passes one per batch row (G = batch, BH = batch * heads),
+since its B and C are shared by every head. Returns (y (BH, nc, Q, hd),
+final state h (BH, ds, hd)).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def _groups(x, Bm):
+    BH = x.shape[0]
+    G = Bm.shape[0]
+    if G == 0 or BH % G:
+        raise ValueError(
+            f"ssd_scan: {G} groups of B/C do not divide {BH} rows")
+    return G, BH // G
+
+
+def ssd_scan_plain(x, dt, A, Bm, Cm):
+    BH, nc, Q, hd = x.shape
+    ds = Bm.shape[-1]
+    G, hpg = _groups(x, Bm)
+    xg = x.reshape(G, hpg, nc, Q, hd)
+    dtg = dt.reshape(G, hpg, nc, Q)
+    Ag = A.reshape(G, hpg, 1)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    h = torch.zeros((G, hpg, ds, hd), dtype=x.dtype, device=x.device)
+    ys = []
+    for c in range(nc):
+        dtc = dtg[:, :, c]  # (G, hpg, Q)
+        Bc = Bm[:, c, None]  # (G, 1, Q, ds): one B for every row of a group
+        Cc = Cm[:, c, None]
+        cs = torch.cumsum(dtc * Ag, dim=-1)
+        seg = torch.exp(cs[..., -1])
+        L = torch.where(tri, torch.exp(cs[..., :, None] - cs[..., None, :]),
+                        0.0)
+        CB = Cc @ Bc.transpose(-1, -2)  # (G, 1, Q, Q)
+        xdt = xg[:, :, c] * dtc[..., None]
+        y_intra = (CB * L) @ xdt
+        y_inter = (Cc @ h) * torch.exp(cs)[..., None]
+        decay_out = torch.exp(cs[..., -1:] - cs)[..., None]
+        h = h * seg[..., None, None] + Bc.transpose(-1, -2) @ (xdt * decay_out)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=2).reshape(BH, nc, Q, hd)
+    return y, h.reshape(BH, ds, hd)
+
+
+@functools.cache
+def _entry_points():
+    """The built library's functions, with their C signatures set once
+    (the library is built at the first call)."""
+    lib = _build.load("ssd_scan")
+    launch = lib.ssd_scan_launch
+    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p] * 3
+    launch.restype = ctypes.c_int
+    smem = lib.ssd_scan_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_size_t
+    error_string = lib.ssd_scan_error_string
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+    return launch, smem, error_string
+
+
+def ssd_scan_cuda(x, dt, A, Bm, Cm):
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+
+    Raises on a tensor the kernel does not take and on a launch the driver
+    refuses, such as one whose shapes need more shared memory than a block
+    may have."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {dev}")
+    BH, nc, Q, hd = x.shape
+    ds = Bm.shape[-1]
+    G, hpg = _groups(x, Bm)
+    f32 = torch.float32
+    for t, name, shape in ((x, "x", (BH, nc, Q, hd)), (dt, "dt", (BH, nc, Q)),
+                           (A, "A", (BH,)), (Bm, "Bm", (G, nc, Q, ds)),
+                           (Cm, "Cm", (G, nc, Q, ds))):
+        _build.check_tensor("ssd_scan", t, name, f32, shape, dev)
+    launch, smem, error_string = _entry_points()
+    y = torch.empty((BH, nc, Q, hd), dtype=f32, device=dev)
+    h = torch.empty((BH, ds, hd), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = _build.ptr
+    err = launch(p(x), p(dt), p(A), p(Bm), p(Cm), BH, nc, Q, hd, ds, hpg,
+                 p(y), p(h), ctypes.c_void_p(stream))
+    if err != 0:
+        msg = error_string(err).decode()
+        raise RuntimeError(
+            f"ssd_scan kernel launch failed: {msg} ({err}); Q={Q}, hd={hd}, "
+            f"ds={ds} need {smem(Q, hd, ds)} bytes of shared memory a block")
+    return y, h

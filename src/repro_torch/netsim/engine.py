@@ -30,11 +30,12 @@ into one flat index.
   uint32 value.
 * JAX's ``mode="drop"`` scatters scatter into one extra dummy element
   that is sliced off; ``.at[].min/max`` is ``scatter_reduce_``.
-* The link-demand estimate that UGAL compares is summed in a fixed order
-  (:func:`_link_demand`): the reference's order on the CPU, a sort-based
-  deterministic order on CUDA, so two runs with one seed take the same
-  routes. The other scatter-adds are integer counters (exact in any
-  order) or float metrics nothing reads back.
+* The link-demand estimate that UGAL compares is summed serially in flat
+  index order on every device (:func:`repro_torch.kernels.ops.link_demand`:
+  the CPU's scatter-add, a stable sort and a serial sum per link on the
+  card), the reference's order, so the card takes the CPU's routes. The
+  other scatter-adds are integer counters (exact in any order) or float
+  metrics nothing reads back.
 * The injection ``lax.cond`` is not needed: injection always runs, and
   for members with nothing to send it is a bit-exact no-op.
 * The ``lax.while_loop`` becomes a host loop that steps ``chunk`` ticks
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.skeleton import OP, SkeletonProgram
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as KOPS
 from repro_torch.netsim.config import NetConfig
 from repro_torch.netsim.fabric import Fabric, routing_tables
@@ -59,18 +61,6 @@ from repro_torch.netsim.faults import FaultState, healthy_state
 
 MAXE = 8  # max emissions per rank per (op, round)
 MASK32 = 0xFFFFFFFF
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    another. Raises when CUDA is asked for (or defaulted to) and absent —
-    the port never drops to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class JobTable(NamedTuple):
@@ -311,28 +301,6 @@ def _flat_add(target, idx, vals, valid=None):
 
 def _flat_set(target, idx, vals, valid=None):
     return _flat_scatter(target, idx, vals, valid, accumulate=False)
-
-
-def _link_demand(pool: PoolState, n_links: int):
-    """(B, L+1) outstanding bytes per link of the active messages.
-
-    UGAL compares these sums, so they are taken in a fixed order on every
-    device: ``index_put_(accumulate=True)`` is serial in index order on the
-    CPU (the reference's scatter order) and sort-based, run-to-run
-    deterministic on CUDA. Route entries that carry nothing (padding,
-    inactive messages) add +0.0 — an exact no-op — to a link picked by
-    their position rather than to one dummy row, which keeps the sort-based
-    sum free of one giant run of equal indices.
-    """
-    B, M, K = pool.routes.shape
-    Lp = n_links + 1
-    valid = (pool.routes >= 0) & pool.active[:, :, None]
-    pos = torch.arange(M * K, device=pool.routes.device).reshape(1, M, K)
-    lidx = torch.where(valid, pool.routes.long(), pos % Lp)
-    lidx = lidx + (torch.arange(B, device=lidx.device) * Lp)[:, None, None]
-    vals = (pool.bytes_rem[:, :, None] * valid).reshape(-1)
-    return torch.zeros(B * Lp, dtype=vals.dtype, device=vals.device) \
-        .index_put_((lidx.reshape(-1),), vals, accumulate=True).reshape(B, Lp)
 
 
 def _flat_reduce(target, idx, vals, how):
@@ -703,7 +671,8 @@ def build_engine(
         # it saves the host sync a branch would cost. The link demand
         # (outstanding bytes per link) comes from the PRE-injection pool —
         # the job pass and the UR pass both route against this snapshot.
-        demand = _link_demand(pool, L)
+        demand = KOPS.link_demand(pool.routes, pool.active, pool.bytes_rem,
+                                  L)
         # failed links: infinite demand steers adaptive routes around
         # them; +0.0 when healthy, so the add is a bit-exact no-op.
         demand = torch.cat([

@@ -134,3 +134,17 @@ def test_ops_dispatch_takes_plain_version_on_cpu():
     assert ops.CALLS["drain_tick"] == 1
     assert ops.LAUNCHES["drain_tick"] == 0
     _assert_matches(_ref(x, 2.0, A, R), out)
+
+
+def test_each_source_names_its_own_flags():
+    """Only the drain tick asks for ``--fmad=false`` (its exact delivery
+    ticks need it); the flags are part of the library's hash."""
+    from repro_torch.kernels import _build
+
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sources == ["drain_tick", "link_demand", "router_tick", "ssd_scan"]
+    for name in sources:
+        flags = _build.source_flags(name)
+        assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+        assert ("--fmad=false" in flags) == (name == "drain_tick"), name
+        assert _build.library_path(name).name.startswith(f"{name}-")

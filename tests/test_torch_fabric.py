@@ -1,15 +1,20 @@
 """The port's copies of the jax-free modules have not drifted.
 
 The port keeps its own copies of the DSL, the skeleton translator, the
-workloads, the dragonfly builders and the placement policies. Built from
-the same inputs, each must give what the JAX package's module gives.
+workloads, the dragonfly builders, the placement policies, the model
+configuration and the architecture registry. Built from the same inputs,
+each must give what the JAX package's module gives.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
+from repro import configs as ref_configs
 from repro.core import workloads as ref_workloads
 from repro.netsim.fabric import get_fabric as ref_get_fabric
 from repro.netsim.placement import place_jobs as ref_place_jobs
+from repro_torch import configs
 from repro_torch.core import workloads
 from repro_torch.netsim.fabric import get_fabric
 from repro_torch.netsim.placement import place_jobs
@@ -75,3 +80,34 @@ def test_unported_fabric_fails_validation(fabric):
 def test_mix_scenarios_validate():
     for wl in ("workload1", "workload2", "workload3", "baseline-nn"):
         mix_scenario(wl, topo="2d", scale="paper").validate()
+
+
+DERIVED = ("padded_vocab", "d_qkv", "ssm_d_inner", "ssm_n_heads",
+           "n_periods")
+
+
+@pytest.mark.parametrize("arch", configs.PORTED)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_model_configs_match(arch, smoke):
+    get = "get_smoke_config" if smoke else "get_config"
+    want = getattr(ref_configs, get)(arch)
+    got = getattr(configs, get)(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for a in DERIVED:
+        assert getattr(got, a) == getattr(want, a), a
+    assert got.param_count() == want.param_count()
+    assert got.active_param_count() == want.active_param_count()
+
+
+def test_registry_matches_and_refuses_the_rest():
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    for arch in ref_configs.ARCH_IDS:
+        assert configs.canon(arch.replace("_", "-")) == \
+            ref_configs.canon(arch.replace("_", "-"))
+        if arch in configs.PORTED:
+            continue
+        with pytest.raises(ValueError, match="not yet ported"):
+            configs.get_config(arch)
+    cfg = ref_configs.get_config("jamba_v01_52b")
+    assert dataclasses.asdict(configs.smoke_shrink(cfg)) == \
+        dataclasses.asdict(ref_configs.smoke_shrink(cfg))

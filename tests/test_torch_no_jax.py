@@ -26,6 +26,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert "repro_torch.launch.sim" in names, names
+assert "repro_torch.launch.serve" in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -93,3 +94,23 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     # and with the CPU asked for, the same scenario runs
     rep = manager.run_scenario(_tiny_scenario(), device="cpu")
     assert rep["latency"]["pp"]["count"] == 4
+
+
+def test_lm_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MDL
+    from repro_torch.train.serve_step import make_decode_state
+
+    cfg = get_smoke_config("mamba2_370m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MDL.init_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_decode_state(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "mamba2_370m", "--smoke"])
+    # and with the CPU asked for, a prefill step runs
+    params = MDL.init_model(cfg, device="cpu")
+    tok = MDL.prefill_forward(params, torch.zeros((1, 5), dtype=torch.int32),
+                              cfg)
+    assert tok.shape == (1,) and tok.device.type == "cpu"
