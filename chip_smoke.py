@@ -19,7 +19,8 @@ its seconds, and any failure raises (non-zero exit, no result line):
    by CUDA events, and the bound from the bytes the call must move;
 3. link-demand kernel against its plain version on a CPU copy at the
    paper's shapes, bit for bit (the plain version sums serially only on
-   the CPU); times and the byte bound;
+   the CPU); how many sums ``index_add_`` and ``index_put_(accumulate=True)``
+   on the card give with other bits; times and the byte bound;
 4. SSD chunk-scan kernel against its plain version at the Mamba-2 prefill
    shapes (8 requests x 32 heads, 32 chunks of 128, head 64, state 128),
    and at a ragged length (4,000) through the mixer's padding, within
@@ -49,7 +50,9 @@ its seconds, and any failure raises (non-zero exit, no result line):
 10. the port's serve loop (4 slots, 8 requests, prompt 16, 24 generated
    tokens): served tokens, decode tokens per second; a profile of one
    decode step;
-11. the kernel summary line, then the result line.
+11. the kernel summary line (each kernel's launches as read in the counted
+   windows, its largest error against its plain version), then the result
+   line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``).
 """
@@ -258,7 +261,9 @@ def phase_link_demand(dev):
     shows. Times: the kernel (sort, run starts, serial sums) and the plain
     version on the card by CUDA events, and ``index_put_(accumulate=True)``
     over the flat entries as the one library call that takes these sums
-    (in another order); the bound is the bytes the call must move."""
+    (in another order); the bound is the bytes the call must move. Counts
+    the sums that the plain version on the card (``index_add_``, atomics)
+    and that library call give with other bits than the serial sums."""
     import numpy as np
     import torch
 
@@ -287,23 +292,31 @@ def phase_link_demand(dev):
                 .reshape(-1))
         vals = (args[2][:, :, None] * ((args[0] >= 0) & args[1][:, :, None])
                 ).reshape(-1)
+
+        def library():
+            return torch.zeros(L + 1, device=dev).index_put_(
+                (flat,), vals, accumulate=True)
+
+        def differing(x):  # sums that are not the serial sums' bits
+            return int((x.cpu().reshape(-1).view(torch.int32)
+                        != want.reshape(-1).view(torch.int32)).sum())
+
         moved = sum(a.numel() * a.element_size() for a in args) + (L + 1) * 4
         rows.append(dict(
             M=M, L=L, exact=True,
-            plain_on_card_sums_differing=int(
-                (on_card_plain.view(torch.int32)
-                 != want.view(torch.int32)).sum()),
+            max_abs_err=float((got.cpu() - want).abs().max()),
+            # the plain version on the card takes index_add_ (atomics)
+            index_add_on_card_sums_differing=differing(on_card_plain),
+            index_put_on_card_sums_differing=differing(library()),
             kernel_ms=device_ms(lambda: link_demand_cuda(*args, L)),
             kernel_call_ms=time_ms(lambda: link_demand_cuda(*args, L)),
             plain_ms=time_ms(lambda: link_demand_plain(*args, L)),
-            library_ms=time_ms(lambda: torch.zeros(
-                L + 1, device=dev).index_put_((flat,), vals,
-                                              accumulate=True)),
+            library_ms=time_ms(library),
             bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             bytes=moved))
     emit(dict(phase="link_demand_vs_plain", seconds=time.perf_counter() - t0,
               cases=rows))
-    return rows[0]
+    return rows
 
 # ---------------------------------------------------------------------------
 # phase 4: the SSD chunk scan against its plain version
@@ -639,7 +652,8 @@ def route_parity(st, rs, dev, seed, n=65536):
          f"UGAL routes: {int((rc != rh).any(1).sum())} of {n} differ between "
          "the card and the CPU")
     return dict(links_with_demand=int((host > 0).sum()), routed=n,
-                nonminimal=int((rc != mc).any(1).sum()))
+                nonminimal=int((rc != mc).any(1).sum()),
+                demand_max_abs_err=float((card_h - host).abs().max()))
 
 
 def device_profile(fn):
@@ -723,6 +737,10 @@ def phase_paper(name, cfg, dev):
     need(demand_launches == ops.CALLS["link_demand"] == calls,
          f"{name}: {demand_launches} link-demand launches for "
          f"{ops.CALLS['link_demand']} calls and {calls} ticks")
+    router_launches = ops.LAUNCHES["router_rate_drain"]
+    need(router_launches == ops.CALLS["router_rate_drain"],
+         f"{name}: {router_launches} route-rate-drain launches for "
+         f"{ops.CALLS['router_rate_drain']} calls")
     need(rep["dropped"] == 0, f"{name}: {rep['dropped']} messages dropped")
     delivered = {app: v.get("count", 0) for app, v in rep["latency"].items()}
 
@@ -776,12 +794,17 @@ def phase_paper(name, cfg, dev):
               virtual_time_ms=rep["virtual_time_ms"], wall_s=wall,
               virtual_ms_per_wall_s=rep["virtual_time_ms"] / wall,
               drain_calls=calls, drain_launches=launches,
-              link_demand_launches=demand_launches, dropped=rep["dropped"],
+              link_demand_launches=demand_launches,
+              router_rate_drain_launches=router_launches,
+              dropped=rep["dropped"],
               peak_device_mib=peak_mib, delivered=delivered,
               sampled_ticks=sampled, identical_reruns=True,
               profile=prof))
-    return rep, dict(drain_tick=launches, link_demand=demand_launches), \
-        delivered
+    return dict(drain_tick=launches, link_demand=demand_launches,
+                router_rate_drain=router_launches,
+                link_demand_max_abs_err=max(
+                    s["route_parity"]["demand_max_abs_err"]
+                    for s in sampled)), delivered
 
 
 # ---------------------------------------------------------------------------
@@ -840,6 +863,10 @@ def phase_lm_prefill(dev, steps=3):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     launches, calls = ops.LAUNCHES["ssd_scan"], ops.CALLS["ssd_scan"]
+    router_launches = ops.LAUNCHES["router_rate_drain"]
+    need(router_launches == ops.CALLS["router_rate_drain"],
+         f"lm_prefill: {router_launches} route-rate-drain launches for "
+         f"{ops.CALLS['router_rate_drain']} calls")
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     need(launches == calls == cfg.n_layers * steps,
          f"lm_prefill: {launches} scan launches for {calls} calls, want "
@@ -872,10 +899,12 @@ def phase_lm_prefill(dev, steps=3):
               compute_dtype=cfg.compute_dtype, batch=B, seq=S, steps=steps,
               step_s=walls, prefill_tokens_per_s=B * S / step_s,
               ssd_scan_calls=calls, ssd_scan_launches=launches,
+              router_rate_drain_launches=router_launches,
               peak_device_mib=peak_mib, first_tokens=out.tolist(),
               profile=prof,
               agreement_f32=agree32, agreement_bf16=agree16))
-    return params, cfg, launches
+    return params, cfg, dict(ssd_scan=launches,
+                             router_rate_drain=router_launches)
 
 
 def phase_lm_serve(params, cfg, dev):
@@ -945,18 +974,18 @@ def main() -> int:
     print(card, flush=True)
 
     rows, max_err = phase_kernel(dev)
-    dem = phase_link_demand(dev)
+    dem_rows = phase_link_demand(dev)
     ssd = phase_ssd(dev)
     rtr = phase_router(dev)
     phase_goldens(dev)
-    _rep1, launches1, delivered1 = phase_paper("paper_1d", PAPER_1D, dev)
+    launches1, delivered1 = phase_paper("paper_1d", PAPER_1D, dev)
     for app in ("alexnet", "lammps", "nn", "ur"):
         need(delivered1.get(app, 0) > 0, f"paper_1d: {app} delivered nothing")
-    phase_paper("paper_2d", PAPER_2D, dev)
-    params, cfg, ssd_launches = phase_lm_prefill(dev)
+    launches2, _ = phase_paper("paper_2d", PAPER_2D, dev)
+    params, cfg, lm_launches = phase_lm_prefill(dev)
     phase_lm_serve(params, cfg, dev)
 
-    main_row = rows[0]
+    main_row, dem = rows[0], dem_rows[0]
     emit({"kernels": [
         dict(name="drain_tick", route="cuda",
              source="src/repro_torch/kernels/csrc/drain_tick.cu",
@@ -970,7 +999,9 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/link_demand.cu",
              replaces="src/repro/netsim/engine.py:805",
              tpu=None,  # the reference's jnp scatter-add, not a TPU kernel
-             launches=launches1["link_demand"], max_abs_err=0.0,
+             launches=launches1["link_demand"],
+             max_abs_err=max([r["max_abs_err"] for r in dem_rows]
+                             + [launches1["link_demand_max_abs_err"]]),
              ms=dem["kernel_ms"], plain_ms=dem["plain_ms"],
              bound_ms=dem["bound_ms"], bound_by=dem["bound_by"],
              library_ms=dem["library_ms"]),
@@ -978,7 +1009,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:59",
              tpu="src/repro/kernels/ssd_scan.py::ssd_scan_pallas",
-             launches=ssd_launches, max_abs_err=ssd["max_abs_err"],
+             launches=lm_launches["ssd_scan"], max_abs_err=ssd["max_abs_err"],
              ms=ssd["ms"], plain_ms=ssd["plain_ms"],
              bound_ms=ssd["bound_ms"], bound_by=ssd["bound_by"],
              library_ms=None),
@@ -986,7 +1017,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/router_tick.cu",
              replaces="src/repro/kernels/router_tick.py:48",
              tpu="src/repro/kernels/router_tick.py::router_rate_drain_pallas",
-             launches=0, max_abs_err=max(r["max_abs_err"] for r in rtr),
+             # no path of the port calls it: the counted windows of the
+             # paper runs and of lm_prefill read its launches (0 for 0 calls)
+             launches=launches1["router_rate_drain"]
+             + launches2["router_rate_drain"]
+             + lm_launches["router_rate_drain"],
+             max_abs_err=max(r["max_abs_err"] for r in rtr),
              ms=rtr[0]["kernel_ms"], plain_ms=rtr[0]["plain_ms"],
              bound_ms=rtr[0]["bound_ms"], bound_by=rtr[0]["bound_by"],
              library_ms=None),

@@ -29,12 +29,11 @@ from repro_torch.models.layers import _dtype, dense_init
 
 class Mamba2Mixer(torch.nn.Module):
     """The parameters of one Mamba-2 mixer (the reference's ``mamba_init``
-    tree, under the same names), drawn from ``gen``; ``forward`` is
-    :func:`mamba_forward` and ``decode`` is :func:`mamba_decode`."""
+    tree, under the same names), drawn from ``gen``. The model runs it
+    through :func:`mamba_forward` and :func:`mamba_decode`."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
         super().__init__()
-        self.cfg = cfg
         dt = _dtype(cfg.param_dtype)
         f32 = torch.float32
         d, di, ds = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
@@ -68,12 +67,6 @@ class Mamba2Mixer(torch.nn.Module):
         for name, value in init.items():
             self.register_parameter(
                 name, torch.nn.Parameter(value, requires_grad=False))
-
-    def forward(self, x):
-        return mamba_forward(self, x, self.cfg)
-
-    def decode(self, x, cache):
-        return mamba_decode(self, x, cache, self.cfg)
 
 
 def _softplus(x):

@@ -4,13 +4,16 @@
 bit, the sum a serial float32 loop over the route entries takes in
 (member, message, route slot) order: the order of the JAX engine's
 scatter-add on the CPU, which the engine lockstep in
-``tests/test_torch_engine.py`` holds the port to. The CUDA kernel is held
+``tests/test_torch_engine.py`` holds the port to at small sizes and
+``test_equals_the_reference_scatter_at_pool_scale`` at the paper's. The CUDA kernel is held
 against the plain version in ``tests/test_torch_link_demand_cuda.py``.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.netsim.engine import _flat_add
 from repro_torch.kernels import ops
 from test_torch_link_demand_cuda import _inputs, _on
 
@@ -59,4 +62,29 @@ def test_plain_is_serial_at_pool_scale_with_threads():
     finally:
         torch.set_num_threads(threads)
     np.testing.assert_array_equal(got[0].numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("B,M,L", [(1, 65536, 53856), (2, 65573, 73920)])
+def test_equals_the_reference_scatter_at_pool_scale(B, M, L):
+    """At the paper's pool and link counts, with several intra-op threads,
+    the port's demand equals bit for bit the demand the JAX engine builds
+    (``jnp.zeros`` and its ``_flat_add`` scatter-add, as in its injection
+    step) from the same numpy inputs."""
+    x = _inputs(B, M, 10, L, 23)
+    routes, active = jnp.asarray(x["routes"]), jnp.asarray(x["active"])
+    valid = (routes >= 0) & active[:, :, None]
+    lidx = jnp.where(valid, routes, L)
+    want = np.asarray(_flat_add(
+        jnp.zeros((B, L + 1), jnp.float32), lidx,
+        jnp.broadcast_to(jnp.asarray(x["bytes_rem"])[:, :, None], lidx.shape)
+        * valid))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        got = ops.link_demand(*_on(x, "cpu"), L)
+    finally:
+        torch.set_num_threads(threads)
+    assert got.shape == (B, L + 1)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))

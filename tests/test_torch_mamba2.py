@@ -80,7 +80,7 @@ def test_mamba_forward_and_decode(setup):
     x = np.random.default_rng(1).standard_normal(
         (2, 21, cfg.d_model)).astype(np.float32)
     want = JM.mamba_forward(jp, jnp.asarray(x), jcfg)
-    got = mixer(torch.as_tensor(x))
+    got = M.mamba_forward(mixer, torch.as_tensor(x), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
 
@@ -89,7 +89,7 @@ def test_mamba_forward_and_decode(setup):
     for t in range(5):
         xt = x[:, t:t + 1]
         want, jcache = JM.mamba_decode(jp, jnp.asarray(xt), jcache, jcfg)
-        got, cache = mixer.decode(torch.as_tensor(xt), cache)
+        got, cache = M.mamba_decode(mixer, torch.as_tensor(xt), cache, cfg)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-6)
         for k in cache:
