@@ -21,11 +21,14 @@ its seconds, and any failure raises (non-zero exit, no result line):
    paper's shapes, bit for bit (the plain version sums serially only on
    the CPU); how many sums ``index_add_`` and ``index_put_(accumulate=True)``
    on the card give with other bits; times and the byte bound;
-4. SSD chunk-scan kernel against its plain version at the Mamba-2 prefill
+4. SSD chunk-scan kernel (its C Bᵀ pre-pass and the scan, two CUDA
+   kernels a call) against its plain version at the Mamba-2 prefill
    shapes (8 requests x 32 heads, 32 chunks of 128, head 64, state 128),
    and at a ragged length (4,000) through the mixer's padding, within
-   |kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain|; times and the bound
-   from the FLOPs and bytes the call needs;
+   |kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain|; times, the bound
+   from the FLOPs and bytes the call needs, the achieved TFLOP/s and share
+   of the bound, each kernel's device time, the scan's shared memory and
+   both kernels' blocks per SM;
 5. route-rate-drain kernel against its plain version at the paper's
    shapes, bit for bit; times and the byte bound;
 6. the two engine goldens of ``tests/data_engine_golden.json`` on the card;
@@ -80,6 +83,8 @@ KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan")
 # Q * ds = 16,384 float32 products whose partial sums are as large as the
 # largest output, so rounding error scales with max|plain|
 SSD_RTOL, SSD_ATOL_OF_MAX = 1e-4, 1e-5
+# the two CUDA kernels of one ssd_scan call, as the profiler names them
+SSD_KERNELS = ("ssd_scan_cb_kernel", "ssd_scan_kernel")
 LM_ARCH = "mamba2_370m"
 
 
@@ -373,7 +378,8 @@ def phase_ssd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
     4,096 tokens; ``Sr`` is the ragged length."""
     import torch
 
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (
+        ssd_scan_cuda, ssd_scan_occupancy, ssd_scan_plain)
     from repro_torch.models.mamba2 import ssd_chunked
 
     t0 = time.perf_counter()
@@ -387,6 +393,9 @@ def phase_ssd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
     kernel_ms = time_ms(lambda: ssd_scan_cuda(*args), reps=10, warmup=2)
     plain_ms = time_ms(lambda: ssd_scan_plain(*args), reps=5, warmup=1)
     bound_ms, bound_by, flops, moved = ssd_bound_ms(args[0], args[3])
+    _, _, rows = device_profile(lambda: ssd_scan_cuda(*args))
+    kernel_device_ms = {name: sum(r[0] for r in rows if name in r[2]) / 1e3
+                        for name in SSD_KERNELS}
 
     # a ragged length through the mixer's padding (4,000 -> 32 chunks of
     # 128, the last one padded with dt = 0): all 8 rows on the card, batch
@@ -414,7 +423,11 @@ def phase_ssd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
               max_abs_err_ragged=err_r, ragged_S=Sr,
               rtol=SSD_RTOL, atol_of_max=SSD_ATOL_OF_MAX,
               kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, gflop=flops / 1e9, bytes=moved))
+              bound_by=bound_by, gflop=flops / 1e9, bytes=moved,
+              tflop_per_s=flops / 1e9 / kernel_ms,
+              share_of_bound=bound_ms / kernel_ms,
+              kernel_device_ms=kernel_device_ms,
+              occupancy=ssd_scan_occupancy(Q, hd, ds)))
     return dict(max_abs_err=max(err_y, err_h, err_r), ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -877,10 +890,17 @@ def phase_lm_prefill(dev, steps=3):
     step_s = sorted(walls)[len(walls) // 2]
     _, wall_us, rows = device_profile(lambda: prefill(params, tokens))
     busy_us = sum(r[0] for r in rows)
-    scan_us = sum(r[0] for r in rows if "ssd_scan_kernel" in r[2])
+    scan_us = {name: sum(r[0] for r in rows if name in r[2])
+               for name in SSD_KERNELS}
+    scan_calls = {name: sum(r[1] for r in rows if name in r[2])
+                  for name in SSD_KERNELS}
+    need(all(n == cfg.n_layers for n in scan_calls.values()),
+         f"lm_prefill: the profiled step ran the scan's kernels {scan_calls} "
+         f"times, want {cfg.n_layers} each")
     prof = dict(wall_ms=wall_us / 1e3, device_ms=busy_us / 1e3,
                 device_busy_share=busy_us / wall_us,
-                ssd_scan_share_of_device=scan_us / busy_us,
+                ssd_scan_share_of_device=sum(scan_us.values()) / busy_us,
+                ssd_scan_device_ms={k: us / 1e3 for k, us in scan_us.items()},
                 device_kernels=sum(r[1] for r in rows),
                 top=[dict(name=k[:70], ms=us / 1e3, calls=c)
                      for us, c, k in rows[:10]])

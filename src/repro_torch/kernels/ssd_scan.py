@@ -12,8 +12,15 @@ entering a chunk and cs = cumsum(dt * A) over the chunk's Q steps::
   yardstick of correctness.
 * :func:`ssd_scan_cuda` launches ``csrc/ssd_scan.cu`` (built at first use
   by :mod:`repro_torch.kernels._build`), which replaces the TPU kernel
-  ``src/repro/kernels/ssd_scan.py::ssd_scan_pallas``. The source's header
-  note gives its design and its bound on an H100.
+  ``src/repro/kernels/ssd_scan.py::ssd_scan_pallas``. A call is two CUDA
+  kernels on the current stream. A pre-pass, one block per group and
+  chunk, writes the causal half of C Bᵀ and Cᵀ into two scratch tensors,
+  (G, nc, Q, Q) and (G, nc, ds, Q) float32, that the wrapper allocates
+  (16.8 MB each at the prefill shapes, G = 8, nc = 32, Q = 128, ds = 128),
+  so the rows of a group share them. Then the scan, one block per row
+  looping over the row's chunks with the state in shared memory, reads
+  them back. The source's header note gives the design and the bound on
+  an H100.
 
 Shapes (all float32): x (BH, nc, Q, hd); dt (BH, nc, Q); A (BH,);
 Bm, Cm (G, nc, Q, ds) with G dividing BH: row ``bh`` reads group
@@ -76,20 +83,41 @@ def _entry_points():
     (the library is built at the first call)."""
     lib = _build.load("ssd_scan")
     launch = lib.ssd_scan_launch
-    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p] * 3
     launch.restype = ctypes.c_int
     smem = lib.ssd_scan_smem_bytes
     smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_size_t
+    occupancy = lib.ssd_scan_blocks_per_sm
+    occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    occupancy.restype = ctypes.c_int
     error_string = lib.ssd_scan_error_string
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
-    return launch, smem, error_string
+    return launch, smem, occupancy, error_string
+
+
+def ssd_scan_occupancy(Q, hd, ds):
+    """What a launch at these shapes takes on the current card: the scan
+    block's bytes of dynamic shared memory, and the blocks of the scan and
+    of its C Bᵀ pre-pass that one SM holds at once, as CUDA's occupancy
+    calculator gives them."""
+    _, smem, occupancy, error_string = _entry_points()
+    scan, pre = ctypes.c_int(0), ctypes.c_int(0)
+    err = occupancy(Q, hd, ds, ctypes.byref(scan), ctypes.byref(pre))
+    if err != 0:
+        raise RuntimeError(f"ssd_scan occupancy query failed: "
+                           f"{error_string(err).decode()} ({err})")
+    return dict(scan_smem_bytes=smem(Q, hd, ds),
+                scan_blocks_per_sm=scan.value,
+                prepass_blocks_per_sm=pre.value)
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm):
-    """Launch the CUDA kernel on the current stream (no synchronisation).
+    """Launch the C Bᵀ pre-pass and the scan kernel on the current stream
+    (no synchronisation).
 
     Raises on a tensor the kernel does not take and on a launch the driver
     refuses, such as one whose shapes need more shared memory than a block
@@ -105,13 +133,16 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm):
                            (A, "A", (BH,)), (Bm, "Bm", (G, nc, Q, ds)),
                            (Cm, "Cm", (G, nc, Q, ds))):
         _build.check_tensor("ssd_scan", t, name, f32, shape, dev)
-    launch, smem, error_string = _entry_points()
+    launch, smem, _, error_string = _entry_points()
     y = torch.empty((BH, nc, Q, hd), dtype=f32, device=dev)
     h = torch.empty((BH, ds, hd), dtype=f32, device=dev)
+    # scratch for the pre-pass's C Bᵀ and Cᵀ of each group and chunk
+    cb = torch.empty((G, nc, Q, Q), dtype=f32, device=dev)
+    ct = torch.empty((G, nc, ds, Q), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _build.ptr
-    err = launch(p(x), p(dt), p(A), p(Bm), p(Cm), BH, nc, Q, hd, ds, hpg,
-                 p(y), p(h), ctypes.c_void_p(stream))
+    err = launch(p(x), p(dt), p(A), p(Bm), p(Cm), p(cb), p(ct), BH, nc, Q, hd,
+                 ds, hpg, p(y), p(h), ctypes.c_void_p(stream))
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(

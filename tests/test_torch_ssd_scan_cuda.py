@@ -71,6 +71,10 @@ def cuda_device():
     (64, 4, 128, 64, 128, 2),      # full-width rows (mamba2_370m)
     (32, 2, 64, 64, 128, 1),       # a prompt shorter than the chunk
     (3, 2, 37, 5, 9, None),        # odd sizes: tiles and groups ragged
+    (16, 1, 128, 64, 128, 2),      # one chunk
+    (8, 3, 100, 64, 128, 2),       # Q not a multiple of the 8-row micro-tile
+    (32, 2, 128, 64, 128, None),   # one group per row at full width
+    (6, 2, 150, 63, 129, 3),       # hd, ds not multiples of 4; two passes
 ])
 def test_kernel_matches_plain_on_card(cuda_device, BH, nc, Q, hd, ds, groups):
     args = _on(_inputs(BH, nc, Q, hd, ds, 5, groups), cuda_device)
@@ -79,6 +83,16 @@ def test_kernel_matches_plain_on_card(cuda_device, BH, nc, Q, hd, ds, groups):
     torch.cuda.synchronize()
     assert_ssd_close(yk, yp, "y")
     assert_ssd_close(hk, hp, "h")
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_on_card(cuda_device):
+    """Nothing is summed with atomics: two calls give the same bits."""
+    args = _on(_inputs(64, 2, 128, 64, 128, 6, groups=2), cuda_device)
+    y1, h1 = ssd_scan_cuda(*args)
+    y2, h2 = ssd_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 @pytest.mark.cuda
