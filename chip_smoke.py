@@ -16,11 +16,13 @@ its seconds, and any failure raises (non-zero exit, no result line):
    and 73,921; B = 1 with a 1-D bandwidth row, B = 3 with per-member rows
    and dead links): new_rem, rate and delivered exact, the byte deltas to
    rtol 1e-5 (float atomics sum in another order); kernel and plain times
-   by CUDA events, and the bound from the bytes the call must move;
+   by CUDA events, and the bound from the bytes the call must move; then
+   the hard cases of the card tests (``tests/test_torch_drain_tick_cuda.py``);
 3. link-demand kernel against its plain version on a CPU copy at the
-   paper's shapes, bit for bit (the plain version sums serially only on
-   the CPU); how many sums ``index_add_`` and ``index_put_(accumulate=True)``
-   on the card give with other bits; times and the byte bound;
+   paper's shapes and in the card tests' hard cases, bit for bit (the
+   plain version sums serially only on the CPU); how many sums
+   ``index_add_`` and ``index_put_(accumulate=True)`` on the card give
+   with other bits; times and the byte bound;
 4. SSD chunk-scan kernel (its C Bᵀ pre-pass and the scan, two CUDA
    kernels a call) against its plain version at the Mamba-2 prefill
    shapes (8 requests x 32 heads, 32 chunks of 128, head 64, state 128),
@@ -40,9 +42,12 @@ its seconds, and any failure raises (non-zero exit, no result line):
    per 64 ticks, so drain calls are not simulated work); at sampled ticks
    of a second run, the drain kernel against the plain version on the live
    pool, and the link demand and UGAL route choices on the card against
-   the CPU's, bit for bit; two more runs with one seed must give one
-   integer trajectory; a profile of 20 ticks (device time by kernel, the
-   device's busy share);
+   the CPU's, bit for bit, and both kernels' device times on that pool
+   (``live_ms``); the first 128 ticks on the card and on the port's CPU
+   path, whose integer trajectory and pool must have equal digests every
+   64 ticks; two more runs with one seed must give one integer
+   trajectory; a profile of 20 ticks (device time by kernel, the device's
+   busy share, each wrapper's device time and operations a tick);
 8. the paper-scale 2D dragonfly (workload3) the same way, shorter;
 9. Mamba-2 370M at full width (48 layers, seeded random weights, float32
    weights, bfloat16 compute) through ``make_prefill_step`` on 8 requests
@@ -57,7 +62,9 @@ its seconds, and any failure raises (non-zero exit, no result line):
    windows, its largest error against its plain version), then the result
    line.
 
-Imports nothing of JAX or of the JAX package (``src/repro``).
+Imports nothing of JAX or of the JAX package (``src/repro``); the card
+tests' input generators come from ``tests/test_torch_*_cuda.py``, which
+import no JAX either.
 """
 from __future__ import annotations
 
@@ -78,6 +85,8 @@ PAPER_1D = dict(workload="workload1", topo="1d", scale="paper",
                 horizon_ms=10.0)
 PAPER_2D = dict(workload="workload3", topo="2d", scale="paper",
                 horizon_ms=6.0)
+# ticks of each paper run compared between the card and the CPU path
+CARD_VS_CPU_TICKS = 128
 KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan")
 # the SSD kernel's tolerance against its plain version: an output sums
 # Q * ds = 16,384 float32 products whose partial sums are as large as the
@@ -85,6 +94,13 @@ KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan")
 SSD_RTOL, SSD_ATOL_OF_MAX = 1e-4, 1e-5
 # the two CUDA kernels of one ssd_scan call, as the profiler names them
 SSD_KERNELS = ("ssd_scan_cb_kernel", "ssd_scan_kernel")
+# every device operation of one call of the simulator's two wrappers
+WRAPPER_KERNELS = {
+    "drain_tick": ("drain_zero_kernel", "drain_count_kernel", "drain_kernel"),
+    "link_demand": ("link_zero_kernel", "link_count_kernel",
+                    "link_alloc_kernel", "link_place_kernel",
+                    "link_fold_kernel"),
+}
 LM_ARCH = "mamba2_370m"
 
 
@@ -224,7 +240,21 @@ def drain_bound_ms(args, n_apps, n_routers):
 
 
 def phase_kernel(dev):
+    """The drain tick at the paper's shapes (above), then the hard cases of
+    ``tests/test_torch_drain_tick_cuda.py`` (one hot link, no active
+    message, an empty pool, a ragged pool, -1 between valid links, three
+    members with their own bandwidth rows, a router-window table too large
+    for shared memory): new_rem, rate and delivered exact, the byte deltas
+    to rtol 1e-5 of their float64 sums (one entry takes up to 300,000
+    equal adds there, and the plain version's float32 sums, in their own
+    order, are up to about 1e-4 off; both errors are printed)."""
+    import torch
+
     from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
+    from test_torch_drain_tick_cuda import HARD as DRAIN_HARD
+    from test_torch_drain_tick_cuda import _args as _drain_args
+    from test_torch_drain_tick_cuda import _hard_inputs as _drain_hard_inputs
+    from test_torch_drain_tick_cuda import float64_deltas
 
     t0 = time.perf_counter()
     cases = [
@@ -250,8 +280,32 @@ def phase_kernel(dev):
             row["bound_ms"], row["bound_by"], row["bytes"] = drain_bound_ms(
                 args, A, R)
         rows.append(row)
+    hard = []
+    for case, (B, M, L, A, R, per_member) in sorted(DRAIN_HARD.items()):
+        args = _drain_args(_drain_hard_inputs(case, B, M, L, A, R,
+                                              per_member), dev)
+        k = drain_tick_cuda(*args, A, R)
+        p = drain_tick_plain(*args, A, R)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("new_rem", "rate", "delivered"), k, p):
+            need(torch.equal(a, b), f"drain_tick {case} {name}: kernel != "
+                 "plain")
+        rel = {}
+        for name, a, b, c in zip(("link_bytes_delta", "router_win_delta"),
+                                 k[3:], p[3:], float64_deltas(args, k[1], A,
+                                                              R)):
+            a, b = a.cpu().double(), b.cpu().double()
+            need(torch.allclose(a, c, rtol=1e-5, atol=0.0),
+                 f"drain_tick {case} {name}: kernel vs float64 sums beyond "
+                 f"rtol 1e-5")
+            scale = c.abs().clamp(min=1e-30)
+            rel[name] = dict(kernel=float(((a - c).abs() / scale).max()),
+                             plain=float(((b - c).abs() / scale).max()))
+        hard.append(dict(case=case, B=B, M=M, Lp=L + 1, n_apps=A,
+                         routers=R, exact=True,
+                         max_rel_err_vs_float64_sums=rel))
     emit(dict(phase="kernel_vs_plain", seconds=time.perf_counter() - t0,
-              cases=rows))
+              cases=rows, hard_cases=hard))
     return rows, max_err
 
 
@@ -259,33 +313,57 @@ def phase_kernel(dev):
 # phase 3: the link-demand kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def link_demand_inputs(M, L, seed):
+    """numpy-seeded link-demand inputs on the CPU (one member): 10 route
+    slots, a tenth
+    of the entries on 8 hot links (runs of about 4,000 active entries at
+    M = 65,536), half the messages active, remaining bytes over six orders
+    of magnitude."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    routes = np.where(rng.random((1, M, 10)) < 0.1,
+                      rng.integers(0, 8, size=(1, M, 10)),
+                      rng.integers(-1, L, size=(1, M, 10))).astype(np.int32)
+    return [torch.as_tensor(a) for a in (
+        routes, rng.random((1, M)) < 0.5,
+        (10.0 ** rng.uniform(0, 6, (1, M))).astype(np.float32))]
+
+
 def phase_link_demand(dev):
     """The link-demand kernel at the paper's pool and link shapes against
     its plain version on a CPU copy (serial sums there), bit for bit; the
     remaining bytes span six orders of magnitude so that another order
-    shows. Times: the kernel (sort, run starts, serial sums) and the plain
+    shows. Times: the kernel (its five launches, no library call) and the plain
     version on the card by CUDA events, and ``index_put_(accumulate=True)``
     over the flat entries as the one library call that takes these sums
     (in another order); the bound is the bytes the call must move. Counts
     the sums that the plain version on the card (``index_add_``, atomics)
-    and that library call give with other bits than the serial sums."""
-    import numpy as np
+    and that library call give with other bits than the serial sums. Then
+    the hard cases of ``tests/test_torch_link_demand_cuda.py`` (one bucket
+    of most entries, no active message, an empty pool, a ragged pool, -1
+    between valid links, three members, about 100 entries on every link),
+    bit for bit."""
     import torch
 
     from repro_torch.kernels.link_demand import (
         link_demand_cuda, link_demand_plain)
+    from test_torch_link_demand_cuda import HARD, _hard_inputs, _on
 
     t0 = time.perf_counter()
+    hard = []
+    for case, (B, M, L) in sorted(HARD.items()):
+        x = _hard_inputs(case, B, M, L)
+        got = link_demand_cuda(*_on(x, dev), L).cpu()
+        want = link_demand_plain(*_on(x, "cpu"), L)
+        need(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+             f"link_demand {case}: kernel != serial plain sums")
+        hard.append(dict(case=case, B=B, M=M, L=L, exact=True,
+                         max_abs_err=float((got - want).abs().max())))
     rows = []
     for i, (M, L) in enumerate(((65536, 53856), (65573, 73920))):
-        rng = np.random.default_rng(300 + i)
-        routes = np.where(rng.random((1, M, 10)) < 0.1,
-                          rng.integers(0, 8, size=(1, M, 10)),
-                          rng.integers(-1, L, size=(1, M, 10)))
-        routes = routes.astype(np.int32)
-        host = [torch.as_tensor(a) for a in (
-            routes, rng.random((1, M)) < 0.5,
-            (10.0 ** rng.uniform(0, 6, (1, M))).astype(np.float32))]
+        host = link_demand_inputs(M, L, 300 + i)
         args = [a.to(dev) for a in host]
         got = link_demand_cuda(*args, L)
         want = link_demand_plain(*host, L)
@@ -320,8 +398,8 @@ def phase_link_demand(dev):
             bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             bytes=moved))
     emit(dict(phase="link_demand_vs_plain", seconds=time.perf_counter() - t0,
-              cases=rows))
-    return rows
+              cases=rows, hard_cases=hard))
+    return rows + hard
 
 # ---------------------------------------------------------------------------
 # phase 4: the SSD chunk scan against its plain version
@@ -601,6 +679,52 @@ def trajectory(st):
                 win_idx=s.metrics.win_idx)
 
 
+def trajectory_digests(st):
+    """sha256 of each integer-trajectory leaf and of the pool's routes,
+    active flags and remaining-bytes bits, for one member state."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.netsim.state_io import state_to_numpy
+
+    s = state_to_numpy(st)
+    leaves = dict(trajectory(st), routes=s.pool.routes, active=s.pool.active,
+                  bytes_rem=s.pool.bytes_rem)
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in leaves.items()}
+
+
+def card_vs_cpu(name, rs, eng, n=CARD_VS_CPU_TICKS, every=64):
+    """The first ``n`` ticks of the scenario on the card and on the port's
+    CPU path (``index_add_`` demand, the plain drain tick), from one
+    seed: every ``every`` ticks the digests of ``trajectory_digests`` must
+    be equal. The CPU path is the one the CPU lockstep tests hold to the
+    JAX engine."""
+    from repro_torch.union import manager as MGR
+    from repro_torch.union.seeds import engine_seed
+
+    t0 = time.perf_counter()
+    cpu = MGR.build(rs, device="cpu")
+    a = eng.init_state(seed=engine_seed(0))
+    c = cpu.init_state(seed=engine_seed(0))
+    cpu_s = 0.0
+    checks = []
+    for i in range(1, n + 1):
+        a = eng.tick(a)
+        t1 = time.perf_counter()
+        c = cpu.tick(c)
+        cpu_s += time.perf_counter() - t1
+        if i % every == 0:
+            da, dc = trajectory_digests(a), trajectory_digests(c)
+            need(da == dc, f"{name}: after {i} ticks the card and the CPU "
+                 f"differ in {sorted(k for k in da if da[k] != dc[k])}")
+            checks.append(dict(tick=i, active=int(a.pool.active.sum()),
+                               digest=da["bytes_rem"][:16]))
+    return dict(ticks=n, every=every, checks=checks, equal=True,
+                cpu_s_per_tick=cpu_s / n, seconds=time.perf_counter() - t0)
+
+
 def live_drain_args(st, rs, dev):
     """The drain tick's inputs for a live member state, as the engine
     builds them."""
@@ -694,9 +818,18 @@ def device_profile(fn):
     return out, wall_us, rows
 
 
+def kernel_named(key, name):
+    """Whether a profiler key names the CUDA kernel ``name`` (a function
+    of the port's sources, templated or not)."""
+    return f"::{name}(" in key or f"::{name}<" in key
+
+
 def profile_ticks(eng, st, n=20):
     """Device time by kernel over ``n`` ticks and the device's busy share
-    of the wall time. Returns the state after the ticks and the summary."""
+    of the wall time; each wrapper's device time and device operations a
+    tick, found by its kernels' names (the wrappers issue nothing else: no
+    memset, no library kernel), which must be the operations of one call
+    a tick. Returns the state after the ticks and the summary."""
     def ticks():
         s = st
         for _ in range(n):
@@ -705,19 +838,37 @@ def profile_ticks(eng, st, n=20):
 
     st, wall_us, rows = device_profile(ticks)
     busy_us = sum(r[0] for r in rows)
-    drain_us = sum(r[0] for r in rows
-                   if "drain_kernel" in r[2] or "count_kernel" in r[2])
-    demand_us = sum(r[0] for r in rows if "serial_run_sum_kernel" in r[2])
+    wrappers = {}
+    for wrapper, names in WRAPPER_KERNELS.items():
+        mine = [r for r in rows if any(kernel_named(r[2], k) for k in names)]
+        ops_per_tick = sum(r[1] for r in mine) / n
+        need(ops_per_tick == len(names),
+             f"profile: {wrapper} issued {ops_per_tick} of its kernels a "
+             f"tick, want {len(names)} ({names})")
+        wrappers[wrapper] = dict(device_us_per_tick=sum(r[0] for r in mine)
+                                 / n, device_ops_per_tick=ops_per_tick)
     return st, dict(
         ticks=n, wall_ms_per_tick=wall_us / n / 1e3,
         device_ms_per_tick=busy_us / n / 1e3,
         device_busy_share=busy_us / wall_us,
-        drain_kernels_us_per_tick=drain_us / n,
-        link_demand_kernel_us_per_tick=demand_us / n,
+        wrappers=wrappers,
         device_kernels_per_tick=sum(r[1] for r in rows) / n,
         top=[dict(name=k[:70], us_per_tick=us / n, calls_per_tick=c / n)
              for us, c, k in rows[:8]],
     )
+
+
+def paper_engine(cfg, dev):
+    """The paper scenario ``cfg`` resolved (seed 0) and built on ``dev``:
+    (resolved scenario, engine, number of app slots)."""
+    from repro_torch.union import manager as MGR
+    from repro_torch.union.scenario import mix_scenario
+
+    sc = mix_scenario(cfg["workload"], topo=cfg["topo"], scale=cfg["scale"],
+                      placement="RG", routing="ADP", tick_us=5.0,
+                      horizon_ms=cfg["horizon_ms"])
+    rs = MGR.resolve(sc, seed=0)
+    return rs, MGR.build(rs, device=dev), len(rs.padded_app_names(rs.capacity))
 
 
 def phase_paper(name, cfg, dev):
@@ -725,9 +876,9 @@ def phase_paper(name, cfg, dev):
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.drain_tick import drain_tick_cuda
+    from repro_torch.kernels.link_demand import link_demand_cuda
     from repro_torch.launch.sim import run_sim
-    from repro_torch.union import manager as MGR
-    from repro_torch.union.scenario import mix_scenario
     from repro_torch.union.seeds import engine_seed
 
     kw = dict(scale=cfg["scale"], seed=0, horizon_ms=cfg["horizon_ms"],
@@ -761,12 +912,7 @@ def phase_paper(name, cfg, dev):
     # plain version, and demand sums and routes against the CPU's, on live
     # pool states at sampled ticks, then the rest of the run; a third run
     # must end in the same integer trajectory
-    sc = mix_scenario(cfg["workload"], topo=cfg["topo"], scale=cfg["scale"],
-                      placement="RG", routing="ADP", tick_us=5.0,
-                      horizon_ms=cfg["horizon_ms"])
-    rs = MGR.resolve(sc, seed=0)
-    eng = MGR.build(rs, device=dev)
-    n_apps = len(rs.padded_app_names(rs.capacity))
+    rs, eng, n_apps = paper_engine(cfg, dev)
     st = eng.init_state(seed=engine_seed(0))
     # five sample points spread over the run; a point whose pool is empty
     # moves on to the next tick with messages in flight
@@ -781,13 +927,22 @@ def phase_paper(name, cfg, dev):
         st = eng.tick(st)
         if i >= targets[len(sampled)] and bool(st.pool.active.any()):
             args = live_drain_args(st, rs, dev)
-            err = compare_drain(args, n_apps, rs.topo.n_routers)
-            sampled.append(dict(tick=i, active=int(st.pool.active.sum()),
-                                max_abs_err=err,
-                                route_parity=route_parity(st, rs, dev, i)))
+            R, L = rs.topo.n_routers, rs.topo.n_links
+            err = compare_drain(args, n_apps, R)
+            pool = [x[None] for x in (st.pool.routes, st.pool.active,
+                                      st.pool.bytes_rem)]
+            sampled.append(dict(
+                tick=i, active=int(st.pool.active.sum()), max_abs_err=err,
+                route_parity=route_parity(st, rs, dev, i),
+                live_ms=dict(
+                    drain_tick=device_ms(
+                        lambda: drain_tick_cuda(*args, n_apps, R)),
+                    link_demand=device_ms(
+                        lambda: link_demand_cuda(*pool, L)))))
         i += 1
     need(len(sampled) >= 2, f"{name}: only {len(sampled)} sampled ticks had "
          "messages in flight")
+    against_cpu = card_vs_cpu(name, rs, eng)
     second = trajectory(eng.run(st))
     third = trajectory(eng.run(eng.init_state(seed=engine_seed(0))))
     for k in TRAJECTORY:
@@ -812,7 +967,7 @@ def phase_paper(name, cfg, dev):
               dropped=rep["dropped"],
               peak_device_mib=peak_mib, delivered=delivered,
               sampled_ticks=sampled, identical_reruns=True,
-              profile=prof))
+              card_vs_cpu=against_cpu, profile=prof))
     return dict(drain_tick=launches, link_demand=demand_launches,
                 router_rate_drain=router_launches,
                 link_demand_max_abs_err=max(
@@ -973,7 +1128,7 @@ def main() -> int:
         print(f"chip_smoke: {SRC}/repro_torch not found; run from a "
               "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
+    sys.path[:0] = [SRC, os.path.join(ROOT, "tests")]
     from repro_torch.kernels import _build
 
     # float32 products in full float32 (the kernels' plain versions)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout and
 loaded with :mod:`ctypes` (a plain C interface: no PyTorch headers, so a
-build takes seconds). ``<hash>`` is a content hash of the source and the
-compiler flags, so an edited source rebuilds and an unchanged one is
-loaded as it is. A failed build raises; nothing falls back.
+build takes seconds). ``<hash>`` is a content hash of the source, of the
+headers it includes from ``csrc/`` (``#include "x.cuh"``) and of the
+compiler flags, so an edited source or header rebuilds and an unchanged
+one is loaded as it is. A failed build raises; nothing falls back.
 
 Every source gets :data:`NVCC_FLAGS`. A source adds its own flags on a
 line of its own that starts with ``// nvcc-flags:`` (the drain tick asks
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,6 +36,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 FLAGS_TAG = "// nvcc-flags:"
+INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 class KernelBuildError(RuntimeError):
@@ -58,19 +61,43 @@ def _nvcc() -> str:
         "port's CUDA kernels are built from source at first use")
 
 
-def source_flags(name: str) -> Tuple[str, ...]:
-    """The flags ``csrc/<name>.cu`` is compiled with: the common set, then
-    those of the source's own ``// nvcc-flags:`` lines."""
+def file_flags(path: Path) -> Tuple[str, ...]:
+    """The flags a CUDA source is compiled with: the common set, then those
+    of the source's own ``// nvcc-flags:`` lines."""
     own = []
-    for line in (CSRC / f"{name}.cu").read_text().splitlines():
+    for line in Path(path).read_text().splitlines():
         if line.startswith(FLAGS_TAG):
             own.extend(line[len(FLAGS_TAG):].split())
     return NVCC_FLAGS + tuple(own)
 
 
+def source_flags(name: str) -> Tuple[str, ...]:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    return file_flags(CSRC / f"{name}.cu")
+
+
+def local_headers(path: Path) -> Tuple[Path, ...]:
+    """The headers a source includes with quotes from its own directory,
+    and those they include in turn, in the order first met."""
+    path = Path(path)
+    seen: Dict[Path, None] = {}
+    todo = [path]
+    while todo:
+        for inc in INCLUDE.findall(todo.pop(0).read_text()):
+            h = path.parent / inc
+            if h.exists() and h not in seen:
+                seen[h] = None
+                todo.append(h)
+    return tuple(seen)
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its content hash."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where ``csrc/<name>.cu`` builds to, keyed by a content hash of the
+    source, the headers it includes and its flags."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(source_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -13,24 +13,48 @@
 //   router_win_delta[b, job, dst_rtr(l)] += d  for every route link
 //
 // Design. The Pallas kernel carries the count table across two phases of
-// one sequential TPU grid. GPU blocks run in no order, so the two phases
-// are two launches on one stream: kernel 1 counts with int32 atomics (exact
-// in any order), kernel 2 does the whole drain for one message per thread.
-// The count table is (L+1) int32 per member: 215 KB for the paper's 1D
-// dragonfly and 296 KB for the 2D one, at or above the 227 KB of shared
-// memory one block may use, so it stays in device memory and the 50 MB L2
-// holds it. The ragged edge (M not a multiple of the block) is masked here;
-// nothing is padded. The byte deltas are float atomics, so their sums are
-// taken in run-to-run varying order (metrics only; the integer trajectory
-// does not read them).
+// one sequential TPU grid. GPU blocks run in no order, so the phases are
+// launches on one stream, three a call:
+//   1. drain_zero_kernel   zeroes the count table;
+//   2. drain_count_kernel  zeroes the two delta tables (the drain adds into
+//                          them after it, in stream order) and counts the
+//                          active route entries per link with int32
+//                          atomics, exact in any order;
+//   3. drain_kernel        one message per thread: the route's shares, the
+//                          rate, the drain, the delivery flag and the two
+//                          byte deltas.
+// A warp copies its 32 messages' route rows (32 * K contiguous words) to
+// shared memory with 16-byte loads in both counting and drain passes
+// (sim_rows.cuh), and skips them when all 32 are inactive. The drain pass
+// loads a row's counts and bandwidths together, then divides, so a row
+// costs one round trip to the L2, not one per route link. The count table
+// is (L+1) int32 per member, 215 KB for the paper's 1D dragonfly and
+// 296 KB for the 2D one, at or above the 227 KB of shared memory one block
+// may use, so it stays in device memory (the 50 MB L2 holds it), and so
+// does the link-byte table, with one float atomic per route entry that
+// drained bytes. The router-window table is small (5 apps x 1,056 routers,
+// 21 KB a member on 1D) and each of its entries takes many adds a tick: a
+// block sums its messages' adds in shared memory and adds its table to
+// device memory once, 16 bytes an atomic (sm_90's float4 atomicAdd),
+// skipping the quads it did not touch. Where the table does not fit beside
+// the rows, the adds go to device memory one by one. A link that over
+// 1,024 route entries cross (counted in pass 2) would take so many equal
+// float adds in one chain that the sum would drift from the true one:
+// its adds are summed per warp (__match_any_sync and a tree of shuffles)
+// and per block (a few shared slots keyed by link) before one atomic a
+// block, and the warp's window adds with them. The byte deltas are
+// float sums taken in run-to-run varying order (metrics only; the integer
+// trajectory does not read them); an add of 0 changes no sum, so a
+// message that drained nothing adds nothing. The ragged edge (M not a
+// multiple of the block) is masked here; nothing is padded.
 //
 // Bound on an H100 (3.35 TB/s): memory. Per member and tick the kernel must
 // read routes (M*K*4 B), bytes_rem, min_arrive, job (M*4 B each), active
 // (M B), bw_eff and link_dst_router ((L+1)*4 B each) and write new_rem,
 // rate (M*4 B each), delivered (M B) and the two delta tables. At paper 1D
 // (M=65536, K=10, L+1=53857, workload1's 5 apps x 1056 routers) that is
-// 4.73 MB, about 1.41 us; the arithmetic is a few operations per byte. Two
-// launches of a few microseconds each dominate at this size.
+// 4.73 MB, about 1.41 us; the arithmetic is a few operations per byte.
+// Three launches and the atomics on the count and link tables dominate.
 //
 // Exactness: the share divide and multiply use __fdiv_rn / __fmul_rn and
 // the file is compiled without fast math and with --fmad=false, so every
@@ -44,27 +68,78 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sim_rows.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kZeroThreads = 256;
+constexpr int kBatch = 16;  // route links whose loads are issued together
+constexpr int kHot = 1024;  // links counted more often: summed per block
+constexpr int kHotSlots = 32;  // shared slots a block keeps for them
+// dynamic shared memory a block may take beside its static slots
+constexpr int kMaxSharedBytes = 226 * 1024;
+constexpr unsigned kFull = sim_rows::kFullMask;
 
-__global__ void count_kernel(const int32_t* __restrict__ routes,
-                             const uint8_t* __restrict__ active,
-                             int M, int K, int Lp,
-                             int32_t* __restrict__ count) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+// The sum of ``x`` over the lanes of ``peers`` (the calling lane's group
+// of __match_any_sync), meaningful in the group's lowest lane: a tree over
+// the group in which every lane of the warp takes part.
+__device__ __forceinline__ float group_sum(unsigned peers, float x, int lane) {
+  int rel = __popc(peers & ((1u << lane) - 1u));  // rank in the group
+  unsigned above = peers & ~((2u << lane) - 1u);  // its later lanes
+  while (__any_sync(kFull, above != 0u)) {
+    const int next = __ffs(above);
+    const float y = __shfl_sync(kFull, x, next > 0 ? next - 1 : lane);
+    if (next > 0) x += y;
+    above &= ~__ballot_sync(kFull, rel & 1);
+    rel >>= 1;
+  }
+  return x;
+}
+
+__global__ void drain_zero_kernel(int32_t* __restrict__ p, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    p[i] = 0;
+}
+
+__global__ void drain_count_kernel(const int32_t* __restrict__ routes,
+                                   const uint8_t* __restrict__ active,
+                                   int M, int K, int Lp, int AR,
+                                   int32_t* __restrict__ count,
+                                   float* __restrict__ link_bytes_delta,
+                                   float* __restrict__ router_win_delta) {
+  extern __shared__ int32_t rows_sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  if (m >= M) return;
-  const int64_t msg = (int64_t)b * M + m;
-  if (!active[msg]) return;
-  const int32_t* row = routes + msg * K;
+  // the member's two delta tables, spread over the blocks of its row
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int i = first; i < Lp; i += stride)
+    link_bytes_delta[(int64_t)b * Lp + i] = 0.0f;
+  for (int i = first; i < AR; i += stride)
+    router_win_delta[(int64_t)b * AR + i] = 0.0f;
+
+  const int m0 = (blockIdx.x * (blockDim.x >> 5) + warp) * 32;
+  if (m0 >= M) return;
+  const int n = min(32, M - m0);
+  const int64_t msg = (int64_t)b * M + m0 + lane;
+  const bool act = lane < n && active[msg] != 0;
+  if (!__ballot_sync(kFull, act)) return;
+  int32_t* sm = rows_sm + warp * 32 * K;
+  sim_rows::warp_stage(routes + ((int64_t)b * M + m0) * K, n * K, sm, lane);
+  if (!act) return;
+  const int32_t* row = sm + lane * K;
   int32_t* cnt = count + (int64_t)b * Lp;
   for (int k = 0; k < K; ++k) {
     const int32_t l = row[k];
-    if (l >= 0) atomicAdd(cnt + l, 1);
+    if (l >= 0 && l < Lp) atomicAdd(cnt + l, 1);
   }
 }
 
+// kSharedRw: the block sums its router-window adds in shared memory (the
+// member's A * R table sits before the staged rows) and adds the table to
+// device memory once; otherwise every add is a device atomic.
+template <bool kSharedRw>
 __global__ void drain_kernel(const int32_t* __restrict__ routes,
                              const float* __restrict__ bytes_rem,
                              const uint8_t* __restrict__ active,
@@ -74,56 +149,144 @@ __global__ void drain_kernel(const int32_t* __restrict__ routes,
                              const float* __restrict__ bw, int64_t bw_stride,
                              const int32_t* __restrict__ link_dst_router,
                              const int32_t* __restrict__ count,
-                             int M, int K, int Lp, int n_apps, int n_routers,
+                             int M, int K, int Lp, int n_routers, int AR,
+                             int rows_offset,
                              float* __restrict__ new_rem,
                              float* __restrict__ rate_out,
                              uint8_t* __restrict__ delivered,
                              float* __restrict__ link_bytes_delta,
                              float* __restrict__ router_win_delta) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ __align__(16) int32_t smem[];
+  __shared__ int32_t hot_link[kHotSlots];
+  __shared__ float hot_sum[kHotSlots];
+  float* table = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y;
-  if (m >= M) return;
+  if (kSharedRw)
+    for (int i = tid; i < AR; i += blockDim.x) table[i] = 0.0f;
+  if (tid < kHotSlots) {
+    hot_link[tid] = -1;
+    hot_sum[tid] = 0.0f;
+  }
+  __syncthreads();
+
+  const int m0 = (blockIdx.x * (blockDim.x >> 5) + warp) * 32;
+  const int m = m0 + lane;
+  const bool in = m < M;
   const int64_t msg = (int64_t)b * M + m;
-  const bool act = active[msg] != 0;
-  const float rem = bytes_rem[msg];
-  const int32_t* row = routes + msg * K;
+  const bool act = in && active[msg] != 0;
+  const float rem = in ? bytes_rem[msg] : 0.0f;
   const int32_t* cnt = count + (int64_t)b * Lp;
   const float* bw_b = bw + (int64_t)b * bw_stride;
+  int32_t* sm = smem + rows_offset + warp * 32 * K;
+  const int32_t* row = sm + lane * K;
 
   float rmin = INFINITY;
-  if (act) {
-    for (int k = 0; k < K; ++k) {
-      const int32_t l = row[k];
-      if (l < 0) continue;
-      const float n = fmaxf((float)cnt[l], 1.0f);
-      const float share = __fmul_rn(__fdiv_rn(bw_b[l], n), 1e-6f);
-      rmin = fminf(rmin, share);
+  unsigned hot = 0u;  // the route slots (< 32) on links with over kHot
+  if (__ballot_sync(kFull, act)) {
+    sim_rows::warp_stage(routes + ((int64_t)b * M + m0) * K,
+                         min(32, M - m0) * K, sm, lane);
+    if (act) {
+      for (int k0 = 0; k0 < K; k0 += kBatch) {
+        int32_t l[kBatch];
+        int32_t c[kBatch];
+        float w[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int32_t x = k0 + j < K ? row[k0 + j] : -1;
+          l[j] = (x >= 0 && x < Lp) ? x : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          c[j] = l[j] >= 0 ? cnt[l[j]] : 0;
+          w[j] = l[j] >= 0 ? bw_b[l[j]] : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (l[j] < 0) continue;
+          if (c[j] > kHot && k0 + j < 32) hot |= 1u << (k0 + j);
+          const float nl = fmaxf((float)c[j], 1.0f);
+          rmin = fminf(rmin, __fmul_rn(__fdiv_rn(w[j], nl), 1e-6f));
+        }
+      }
     }
   }
   const float rate = (act && isfinite(rmin)) ? rmin : 0.0f;
   const float drain = fminf(__fmul_rn(rate, dt), rem);
   const float left = __fsub_rn(rem, drain);
-  new_rem[msg] = left;
-  rate_out[msg] = rate;
-  delivered[msg] = (act && left <= 1e-6f && t[b] >= min_arrive[msg]) ? 1 : 0;
+  if (in) {
+    new_rem[msg] = left;
+    rate_out[msg] = rate;
+    delivered[msg] = (act && left <= 1e-6f && t[b] >= min_arrive[msg]) ? 1 : 0;
+  }
 
-  if (!act) return;
+  // the byte deltas (an add of 0 changes no sum, so a message that
+  // drained nothing adds nothing)
+  const bool adds = act && drain != 0.0f;
   float* lb = link_bytes_delta + (int64_t)b * Lp;
-  float* rw = router_win_delta
-      + ((int64_t)b * n_apps + job[msg]) * (int64_t)n_routers;
-  for (int k = 0; k < K; ++k) {
-    const int32_t l = row[k];
-    if (l < 0) continue;
-    atomicAdd(lb + l, drain);
-    atomicAdd(rw + link_dst_router[l], drain);
+  float* rw = kSharedRw ? table : router_win_delta + (int64_t)b * AR;
+  const int jr = adds ? job[msg] * n_routers : 0;  // the app's window row
+  if (__any_sync(kFull, adds && hot != 0u)) {
+    // a link that most of the pool crosses takes so many equal adds that
+    // one chain of float32 atomics would drift from the true sum; its
+    // adds are summed in a tree per warp, then per block in shared memory
+    // (a few slots keyed by link), and the block adds its sum once; the
+    // router-window adds of the warp are summed per entry in the same way
+    for (int k = 0; k < K; ++k) {
+      const int32_t l = adds ? row[k] : -1;
+      const bool valid = l >= 0 && l < Lp;
+      const bool h = valid && k < 32 && ((hot >> k) & 1u);
+      unsigned peers = __match_any_sync(kFull, h ? l : -1 - lane);
+      float sum = group_sum(peers, drain, lane);
+      if (h && lane == __ffs(peers) - 1) {
+        const int slot = l & (kHotSlots - 1);
+        const int32_t was = atomicCAS(&hot_link[slot], -1, l);
+        if (was == -1 || was == l)
+          atomicAdd(&hot_sum[slot], sum);
+        else
+          atomicAdd(lb + l, sum);
+      }
+      if (valid && !h) atomicAdd(lb + l, drain);
+      const int r = valid ? jr + link_dst_router[l] : -1;
+      peers = __match_any_sync(kFull, valid ? r : -1 - lane);
+      sum = group_sum(peers, drain, lane);
+      if (valid && lane == __ffs(peers) - 1) atomicAdd(rw + r, sum);
+    }
+  } else if (adds) {
+    for (int k = 0; k < K; ++k) {
+      const int32_t l = row[k];
+      if (l < 0 || l >= Lp) continue;
+      atomicAdd(lb + l, drain);
+      atomicAdd(rw + jr + link_dst_router[l], drain);
+    }
+  }
+
+  __syncthreads();
+  if (tid < kHotSlots && hot_link[tid] >= 0)
+    atomicAdd(link_bytes_delta + (int64_t)b * Lp + hot_link[tid],
+              hot_sum[tid]);
+  if (kSharedRw) {
+    float* out = router_win_delta + (int64_t)b * AR;
+    if ((AR & 3) == 0 && ((uintptr_t)out & 15u) == 0) {
+      const float4* t4 = reinterpret_cast<const float4*>(table);
+      float4* o4 = reinterpret_cast<float4*>(out);
+      for (int i = tid; i < (AR >> 2); i += blockDim.x) {
+        const float4 v = t4[i];
+        if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+          atomicAdd(o4 + i, v);
+      }
+    } else {
+      for (int i = tid; i < AR; i += blockDim.x)
+        if (table[i] != 0.0f) atomicAdd(out + i, table[i]);
+    }
   }
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Zeroes the count table and the
-// two delta tables, launches both kernels on ``stream`` and returns the
-// first CUDA error (0 on success). Allocates nothing.
+// Plain C entry point, loaded with ctypes. ``count`` is (B, Lp) int32
+// scratch. Launches the three kernels on ``stream`` and returns the first
+// CUDA error (0 on success). Allocates nothing.
 extern "C" int drain_tick_launch(
     const int32_t* routes, const float* bytes_rem, const uint8_t* active,
     const int32_t* job, const float* min_arrive, const float* t, float dt,
@@ -132,23 +295,50 @@ extern "C" int drain_tick_launch(
     int32_t* count, float* new_rem, float* rate, uint8_t* delivered,
     float* link_bytes_delta, float* router_win_delta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0) return 0;
+  const int wpb = sim_rows::warps_per_block(K);
+  if (wpb == 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * wpb;
+  const int AR = n_apps * n_routers;
+  const int rows_bytes = threads * K * (int)sizeof(int32_t);
   cudaError_t err;
-  err = cudaMemsetAsync(count, 0, sizeof(int32_t) * (size_t)B * Lp, s);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(link_bytes_delta, 0, sizeof(float) * (size_t)B * Lp, s);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(router_win_delta, 0,
-                        sizeof(float) * (size_t)B * n_apps * n_routers, s);
-  if (err != cudaSuccess) return (int)err;
-  if (M == 0 || B == 0) return 0;
-  const dim3 grid((M + kThreads - 1) / kThreads, B);
-  count_kernel<<<grid, kThreads, 0, s>>>(routes, active, M, K, Lp, count);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  drain_kernel<<<grid, kThreads, 0, s>>>(
-      routes, bytes_rem, active, job, min_arrive, t, dt, bw, bw_stride,
-      link_dst_router, count, M, K, Lp, n_apps, n_routers, new_rem, rate,
-      delivered, link_bytes_delta, router_win_delta);
+
+  const int64_t n_count = (int64_t)B * Lp;
+  const int64_t zero_blocks = (n_count + kZeroThreads - 1) / kZeroThreads;
+  drain_zero_kernel<<<(unsigned)(zero_blocks < 1024 ? zero_blocks : 1024),
+                      kZeroThreads, 0, s>>>(count, n_count);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // at least one block per member, to zero its delta tables when M = 0
+  const int blocks_x = M > 0 ? (M + threads - 1) / threads : 1;
+  const dim3 grid(blocks_x, B);
+  drain_count_kernel<<<grid, threads, rows_bytes, s>>>(
+      routes, active, M, K, Lp, AR, count, link_bytes_delta,
+      router_win_delta);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (M == 0) return 0;
+
+  const int table_bytes = ((AR * (int)sizeof(float) + 15) / 16) * 16;
+  if (table_bytes + rows_bytes <= kMaxSharedBytes) {
+    const int smem = table_bytes + rows_bytes;
+    static int smem_allowed = sim_rows::kMaxStageBytes;  // set before any
+    if (smem > smem_allowed) {                          // capture needs it
+      err = cudaFuncSetAttribute(drain_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      smem_allowed = smem;
+    }
+    drain_kernel<true><<<grid, threads, smem, s>>>(
+        routes, bytes_rem, active, job, min_arrive, t, dt, bw, bw_stride,
+        link_dst_router, count, M, K, Lp, n_routers, AR,
+        table_bytes / (int)sizeof(int32_t), new_rem, rate, delivered,
+        link_bytes_delta, router_win_delta);
+  } else {
+    drain_kernel<false><<<grid, threads, rows_bytes, s>>>(
+        routes, bytes_rem, active, job, min_arrive, t, dt, bw, bw_stride,
+        link_dst_router, count, M, K, Lp, n_routers, AR, 0, new_rem, rate,
+        delivered, link_bytes_delta, router_win_delta);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,12 @@ the JAX engine's scatter-add takes on the CPU.
   (``index_put_(accumulate=True)`` does not: with several threads it sums
   a large index list in parallel). On CUDA ``index_add_`` adds with
   atomics in no fixed order, so the card never takes it.
-* :func:`link_demand_cuda` sorts the keys stably and launches
-  ``csrc/link_demand.cu``, which adds each link's run serially. The
-  source's header note gives its design and its bound on an H100.
+* :func:`link_demand_cuda` launches ``csrc/link_demand.cu``: a bucket
+  sort of the valid route entries by (member, link) key, written by hand
+  (zero, count, alloc, place, then each bucket put in flat order and
+  folded serially), five kernels on the current stream and no library
+  call. The source's header note gives its design and its bound on an
+  H100; the wrapper allocates its one int32 workspace (:func:`work_words`).
 
 Shapes: routes (B, M, K) int32 link ids (-1 pad); active (B, M) bool;
 bytes_rem (B, M) f32. Returns (B, L+1) f32 with the dummy last column 0.
@@ -38,14 +41,22 @@ def link_demand_plain(routes, active, bytes_rem, n_links: int):
         .index_add_(0, lidx.reshape(-1), vals).reshape(B, Lp)
 
 
+def work_words(B: int, M: int, K: int, n_links: int) -> int:
+    """int32 words of scratch the kernel takes: per (member, link) key a
+    count, a bucket start and a long-bucket slot; two words (the next free
+    place and the long-bucket count); per route entry its place in its
+    bucket and a bucket slot."""
+    return 3 * B * (n_links + 1) + 2 + 2 * B * M * K
+
+
 @functools.cache
 def _entry_points():
     """The built library's launch and error-string functions, with their C
     signatures set once (the library is built at the first call)."""
     lib = _build.load("link_demand")
     launch = lib.link_demand_launch
-    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p]
+    launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 3
     launch.restype = ctypes.c_int
     error_string = lib.link_demand_error_string
     error_string.argtypes = [ctypes.c_int]
@@ -54,8 +65,8 @@ def _entry_points():
 
 
 def link_demand_cuda(routes, active, bytes_rem, n_links: int):
-    """Stable sort of the (member, link) keys, then the serial per-link sums
-    on the current stream (no synchronisation, no host round trip).
+    """The serial per-link sums on the current stream (no synchronisation,
+    no host round trip, no library kernel).
 
     Raises on a tensor the kernel does not take and on a launch the
     driver refuses."""
@@ -63,26 +74,24 @@ def link_demand_cuda(routes, active, bytes_rem, n_links: int):
     if dev.type != "cuda":
         raise ValueError(f"link_demand_cuda needs CUDA tensors, got {dev}")
     B, M, K = routes.shape
-    n_keys = B * (n_links + 1)
+    Lp = n_links + 1
     for x, name, dtype, shape in ((routes, "routes", torch.int32, (B, M, K)),
                                   (active, "active", torch.bool, (B, M)),
                                   (bytes_rem, "bytes_rem", torch.float32,
                                    (B, M))):
         _build.check_tensor("link_demand", x, name, dtype, shape, dev)
-    valid = (routes >= 0) & active[:, :, None]
-    keys = routes.long() + (torch.arange(B, device=dev)
-                            * (n_links + 1))[:, None, None]
-    keys = torch.where(valid, keys, n_keys).reshape(-1)
-    sorted_keys, order = torch.sort(keys, stable=True)
-    vals = bytes_rem[:, :, None].expand(B, M, K).reshape(-1)[order]
-    starts = torch.searchsorted(
-        sorted_keys, torch.arange(n_keys + 1, device=dev))
-    out = torch.empty(n_keys, dtype=torch.float32, device=dev)
+    if B * M * K >= 2**31 or B * Lp >= 2**31:
+        raise ValueError(f"link_demand: {B * M * K} route entries and "
+                         f"{B * Lp} keys; the kernel indexes both in int32")
+    work = torch.empty(work_words(B, M, K, n_links), dtype=torch.int32,
+                       device=dev)
+    out = torch.empty((B, Lp), dtype=torch.float32, device=dev)
     launch, error_string = _entry_points()
     p = _build.ptr
-    err = launch(p(vals), p(starts), n_keys, p(out),
+    err = launch(p(routes), p(active), p(bytes_rem), B, M, K, Lp, p(work),
+                 p(out),
                  ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(f"link_demand kernel launch failed: {msg} ({err})")
-    return out.reshape(B, n_links + 1)
+    return out

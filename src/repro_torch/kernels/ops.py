@@ -5,10 +5,12 @@ plain PyTorch version, CUDA tensors launch the hand-written kernel or
 raise. There is no fallback from the kernel to the plain version.
 
 ``CALLS`` counts, per wrapper, every call; ``LAUNCHES`` counts the calls
-that launched the kernel (a drain-tick call is two CUDA launches: count,
-then drain; the other wrappers launch one kernel a call). A run on the
-card that went through the kernel every time shows ``LAUNCHES == CALLS``;
-:func:`reset_launches` sets every count to 0.
+that launched the wrapper's kernels, once a call however many CUDA
+launches the call takes (a drain tick: zero, count, drain; link demand:
+zero, count, alloc, place, fold; an SSD scan: the C Bᵀ pre-pass and the
+scan; a route-rate-drain: one). A run on the card that went through the
+kernels every time shows ``LAUNCHES == CALLS``; :func:`reset_launches`
+sets every count to 0.
 """
 from __future__ import annotations
 

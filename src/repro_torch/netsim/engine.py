@@ -32,8 +32,9 @@ into one flat index.
   that is sliced off; ``.at[].min/max`` is ``scatter_reduce_``.
 * The link-demand estimate that UGAL compares is summed serially in flat
   index order on every device (:func:`repro_torch.kernels.ops.link_demand`:
-  the CPU's scatter-add, a stable sort and a serial sum per link on the
-  card), the reference's order, so the card takes the CPU's routes. The
+  the CPU's scatter-add; on the card a hand-written bucket sort of the
+  route entries by link, each bucket put in flat order and summed
+  serially), the reference's order, so the card takes the CPU's routes. The
   other scatter-adds are integer counters (exact in any order) or float
   metrics nothing reads back.
 * The injection ``lax.cond`` is not needed: injection always runs, and

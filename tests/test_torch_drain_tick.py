@@ -14,8 +14,10 @@ import torch
 
 from repro.kernels import ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.drain_tick import drain_tick_plain
-from test_torch_drain_tick_cuda import EXACT, SUMS, _dead_link_bw, _inputs
+from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
+from test_torch_drain_tick_cuda import (
+    EXACT, HARD, SUMS, _args, _dead_link_bw, _hard_inputs, _inputs,
+    float64_deltas)
 
 
 def _ref(x, dt, A, R):
@@ -65,6 +67,33 @@ def test_plain_matches_reference_with_dead_links(per_member):
     else:
         x["bw_eff"][:L:7] = 0.0  # dead links in the shared row
     _assert_matches(_ref(x, 2.0, A, R), _port(x, 2.0, A, R))
+
+
+@pytest.mark.parametrize("case", sorted(HARD))
+def test_plain_matches_reference_on_hard_cases(case):
+    """The card tests' hard cases, cut to a small size."""
+    B, _, _, A, _, per_member = HARD[case]
+    M = 0 if case == "empty_pool" else 300
+    x = _hard_inputs(case, B, M, 50, A, 24, per_member)
+    _assert_matches(_ref(x, 5.0, A, 24), _port(x, 5.0, A, 24))
+
+
+def test_float64_deltas_are_the_reference_sums():
+    """The card tests' float64 byte deltas equal the JAX reference's sums
+    on the same drains."""
+    B, M, L, A, R = 3, 400, 60, 3, 12
+    x = _hard_inputs("three_members", B, M, L, A, R, True)
+    want = _ref(x, 5.0, A, R)
+    args = _args(x, "cpu")
+    for w, got in zip(want[3:], float64_deltas(args, drain_tick_plain(
+            *args, A, R)[1], A, R)):
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-6, atol=1e-30)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    x = _inputs(1, 8, 3, 5, 2, 4, 0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        drain_tick_cuda(*_args(x, "cpu"), 2, 4)
 
 
 def test_per_member_bandwidth_rows_match_solo_runs():
@@ -148,3 +177,26 @@ def test_each_source_names_its_own_flags():
         assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
         assert ("--fmad=false" in flags) == (name == "drain_tick"), name
         assert _build.library_path(name).name.startswith(f"{name}-")
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A library's hash covers the ``csrc/*.cuh`` headers its source
+    includes: an edited shared header rebuilds the drain tick and link
+    demand, and leaves the SSD scan as it is."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [h.name for h in _build.local_headers(
+        tmp_path / "drain_tick.cu")] == ["sim_rows.cuh"]
+    names = ("drain_tick", "link_demand", "ssd_scan")
+    before = {n: _build.library_path(n) for n in names}
+    header = tmp_path / "sim_rows.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["drain_tick"] != before["drain_tick"]
+    assert after["link_demand"] != before["link_demand"]
+    assert after["ssd_scan"] == before["ssd_scan"]

@@ -15,7 +15,8 @@ import torch
 
 from repro.netsim.engine import _flat_add
 from repro_torch.kernels import ops
-from test_torch_link_demand_cuda import _inputs, _on
+from repro_torch.kernels.link_demand import link_demand_cuda, work_words
+from test_torch_link_demand_cuda import HARD, _hard_inputs, _inputs, _on
 
 
 def _serial(x, L):
@@ -43,6 +44,27 @@ def test_plain_is_the_serial_sum(B, M, K, L):
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
     assert float(got[:, L].abs().max()) == 0.0  # the dummy column
+
+
+@pytest.mark.parametrize("case", sorted(HARD))
+def test_plain_is_the_serial_sum_on_hard_cases(case):
+    """The card tests' hard cases, cut to a CPU loop's size."""
+    B = HARD[case][0]
+    x = _hard_inputs(case, B, 0 if case == "empty_pool" else 300, 40)
+    want = _serial(x, 40)
+    got = ops.link_demand(*_on(x, "cpu"), 40)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_workspace_and_refusals():
+    """The kernel's workspace: three words a key, two more, two a route
+    entry; the CUDA wrapper refuses tensors that are not on a card."""
+    assert work_words(1, 65536, 10, 53856) == 3 * 53857 + 2 + 2 * 655360
+    assert work_words(3, 0, 10, 4) == 3 * 15 + 2
+    x = _on(_inputs(1, 8, 3, 5, 0), "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        link_demand_cuda(*x, 5)
 
 
 def test_plain_is_serial_at_pool_scale_with_threads():

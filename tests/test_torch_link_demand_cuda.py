@@ -10,8 +10,12 @@ The plain version sums serially in index order only on the CPU, so the
 kernel's sums on the card must equal the plain version's on a CPU copy
 of the same inputs, bit for bit. The remaining bytes span six orders of
 magnitude, so a sum taken in another order differs in its last bits.
-The numpy input generator here is shared with
-``tests/test_torch_link_demand.py``.
+The hard cases put most entries in one bucket (longer than a block sorts
+in shared memory), make every message inactive, empty the pool, make it
+ragged, put -1 between valid links, give three members their own
+shares of active messages and crowd about 100 entries on every link; a
+CUDA-graph replay must give an eager call's bits. The numpy input generators here are shared with
+``tests/test_torch_link_demand.py`` and ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -32,6 +36,44 @@ def _inputs(B, M, K, L, seed, frac=0.6):
         active=rng.random((B, M)) < frac,
         bytes_rem=(10.0 ** rng.uniform(0, 6, (B, M))).astype(np.float32),
     )
+
+
+# the hard cases of the card's bucket sort, at the paper's sizes
+HARD = {  # case: (B, M, L)
+    "one_bucket": (1, 65536, 53856),
+    "all_inactive": (1, 65536, 53856),
+    "empty_pool": (1, 0, 53856),
+    "ragged": (1, 65573, 73920),
+    "mid_row_padding": (1, 65536, 53856),
+    "three_members": (3, 65536, 53856),
+    "crowded_links": (1, 65536, 4000),
+}
+
+
+def _hard_inputs(case, B, M, L, seed=5):
+    """Inputs of one hard case: ``one_bucket`` sends nine tenths of the
+    route entries to link 3 (a bucket longer than a block sorts) and one
+    in eighty to link 5 (a few thousand: a block's sort); ``all_inactive``
+    has no active message; ``mid_row_padding`` puts -1 in random slots
+    between valid links; ``three_members`` gives each member its own
+    share of active messages; ``crowded_links`` (given few links) puts
+    about 100 entries on each, around the longest bucket a warp sorts."""
+    x = _inputs(B, M, 10, L, seed)
+    rng = np.random.default_rng(seed + 1)
+    r = x["routes"]
+    if case == "one_bucket":
+        u = rng.random(r.shape)
+        r[u < 0.9] = min(3, L - 1)
+        r[(u >= 0.9) & (u < 0.9125)] = min(5, L - 1)
+    elif case == "all_inactive":
+        x["active"][:] = False
+    elif case == "mid_row_padding":
+        r[:] = np.abs(r)
+        r[:, :, 1:-1][rng.random(r[:, :, 1:-1].shape) < 0.3] = -1
+    elif case == "three_members":
+        x["active"] = rng.random((B, M)) < np.asarray([0.05, 0.5, 0.95])[
+            :B, None]
+    return x
 
 
 def _on(x, device):
@@ -56,6 +98,41 @@ def test_kernel_equals_serial_cpu_sums(cuda_device, B, M, L):
     want = link_demand_plain(*_on(x, "cpu"), L)
     assert got.shape == want.shape == (B, L + 1)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HARD))
+def test_kernel_equals_serial_cpu_sums_on_hard_cases(cuda_device, case):
+    B, M, L = HARD[case]
+    x = _hard_inputs(case, B, M, L)
+    got = link_demand_cuda(*_on(x, cuda_device), L).cpu()
+    want = link_demand_plain(*_on(x, "cpu"), L)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_an_eager_call(cuda_device):
+    """The wrapper captured in a CUDA graph (its workspace comes from the
+    graph's pool) replays to the eager call's bits, on fresh inputs copied
+    into the captured ones."""
+    x = _on(_inputs(1, 65536, 10, 53856, 29), cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        link_demand_cuda(*x, 53856)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = link_demand_cuda(*x, 53856)
+    for seed in (30, 31):
+        fresh = _on(_hard_inputs("mid_row_padding", 1, 65536, 53856, seed),
+                    cuda_device)
+        for dst, src in zip(x, fresh):
+            dst.copy_(src)
+        graph.replay()
+        eager = link_demand_cuda(*fresh, 53856)
+        torch.cuda.synchronize()
+        assert torch.equal(captured.view(torch.int32), eager.view(torch.int32))
 
 
 @pytest.mark.cuda
