@@ -17,7 +17,8 @@ its seconds, and any failure raises (non-zero exit, no result line):
    and dead links): new_rem, rate and delivered exact, the byte deltas to
    rtol 1e-5 (float atomics sum in another order); kernel and plain times
    by CUDA events, and the bound from the bytes the call must move; then
-   the hard cases of the card tests (``tests/test_torch_drain_tick_cuda.py``);
+   the hard cases of the card tests (``tests/test_torch_drain_tick_cuda.py``,
+   NaN bandwidths and NaN remaining bytes among them);
 3. link-demand kernel against its plain version on a CPU copy at the
    paper's shapes and in the card tests' hard cases, bit for bit (the
    plain version sums serially only on the CPU); how many sums
@@ -31,8 +32,11 @@ its seconds, and any failure raises (non-zero exit, no result line):
    from the FLOPs and bytes the call needs, the achieved TFLOP/s and share
    of the bound, each kernel's device time, the scan's shared memory and
    both kernels' blocks per SM;
-5. route-rate-drain kernel against its plain version at the paper's
-   shapes, bit for bit; times and the byte bound;
+5. route-rate-drain kernel against its plain version, bit for bit (NaN
+   where the plain version has NaN): random routes at the paper's 1D and
+   2D shapes (almost no -1 in them), the engine's padded rows, and NaN
+   shares and remaining bytes (``tests/test_torch_router_tick_cuda.py``);
+   times and the byte bound;
 6. the two engine goldens of ``tests/data_engine_golden.json`` on the card;
 7. the paper-scale simulator on the 1D dragonfly (Table II, 8,448 nodes;
    workload1 + UR, 65,536-message pool) through ``run_sim`` with the
@@ -42,8 +46,11 @@ its seconds, and any failure raises (non-zero exit, no result line):
    per 64 ticks, so drain calls are not simulated work); at sampled ticks
    of a second run, the drain kernel against the plain version on the live
    pool, and the link demand and UGAL route choices on the card against
-   the CPU's, bit for bit, and both kernels' device times on that pool
-   (``live_ms``); the first 128 ticks on the card and on the port's CPU
+   the CPU's, bit for bit, and the drain tick's and link demand's device
+   times on that pool (``live_ms``); the route-rate-drain on that pool
+   with the share table of its state, against its plain version, and its
+   device time there (``live_ms``, 0 launches counted: no path calls it);
+   the first 128 ticks on the card and on the port's CPU
    path, whose integer trajectory and pool must have equal digests every
    64 ticks; two more runs with one seed must give one integer
    trajectory; a profile of 20 ticks (device time by kernel, the device's
@@ -244,10 +251,12 @@ def phase_kernel(dev):
     ``tests/test_torch_drain_tick_cuda.py`` (one hot link, no active
     message, an empty pool, a ragged pool, -1 between valid links, three
     members with their own bandwidth rows, a router-window table too large
-    for shared memory): new_rem, rate and delivered exact, the byte deltas
-    to rtol 1e-5 of their float64 sums (one entry takes up to 300,000
-    equal adds there, and the plain version's float32 sums, in their own
-    order, are up to about 1e-4 off; both errors are printed)."""
+    for shared memory, NaN bandwidths, NaN remaining bytes): new_rem, rate
+    and delivered bit for bit (NaN where the plain version has NaN), the
+    byte deltas to rtol 1e-5 of their float64 sums, NaN where those are
+    (one entry takes up to 300,000 equal adds there, and the plain
+    version's float32 sums, in their own order, are up to about 1e-4 off;
+    both errors are printed)."""
     import torch
 
     from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
@@ -255,6 +264,7 @@ def phase_kernel(dev):
     from test_torch_drain_tick_cuda import _args as _drain_args
     from test_torch_drain_tick_cuda import _hard_inputs as _drain_hard_inputs
     from test_torch_drain_tick_cuda import float64_deltas
+    from test_torch_router_tick_cuda import same_bits
 
     t0 = time.perf_counter()
     cases = [
@@ -288,16 +298,18 @@ def phase_kernel(dev):
         p = drain_tick_plain(*args, A, R)
         torch.cuda.synchronize()
         for name, a, b in zip(("new_rem", "rate", "delivered"), k, p):
-            need(torch.equal(a, b), f"drain_tick {case} {name}: kernel != "
+            need(same_bits(a, b), f"drain_tick {case} {name}: kernel != "
                  "plain")
         rel = {}
         for name, a, b, c in zip(("link_bytes_delta", "router_win_delta"),
                                  k[3:], p[3:], float64_deltas(args, k[1], A,
                                                               R)):
             a, b = a.cpu().double(), b.cpu().double()
-            need(torch.allclose(a, c, rtol=1e-5, atol=0.0),
+            need(torch.allclose(a, c, rtol=1e-5, atol=0.0, equal_nan=True),
                  f"drain_tick {case} {name}: kernel vs float64 sums beyond "
                  f"rtol 1e-5")
+            num = ~torch.isnan(c)  # NaN sums are held by position above
+            a, b, c = a[num], b[num], c[num]
             scale = c.abs().clamp(min=1e-30)
             rel[name] = dict(kernel=float(((a - c).abs() / scale).max()),
                              plain=float(((b - c).abs() / scale).max()))
@@ -514,41 +526,97 @@ def phase_ssd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
 # phase 5: the route-rate-drain against its plain version
 # ---------------------------------------------------------------------------
 
-def phase_router(dev):
+def router_bound_ms(args):
+    """The least time for one route-rate-drain: routes, flags, remaining
+    bytes and the share table read once, new_rem, rate and drained
+    written once, at the HBM rate (one compare per route entry is far
+    below the float32 rate)."""
+    M = args[0].shape[0]
+    moved = sum(a.numel() * a.element_size() for a in args) + M * 9
+    return moved / HBM_BYTES_PER_S * 1e3, moved
+
+
+def router_cases(dev):
+    """phase 5's labelled inputs, each (routes, bytes_rem, active, share)
+    on ``dev``: ``random_1d`` and ``random_2d`` (routes drawn from
+    [-1, L), so about one entry in 54,000 is a pad: the kernel row's case
+    is random_1d), ``padded_rows_1d`` (random_1d with the card tests' rows
+    of 4-8 links and 2-6 pads, as the engine's routes are padded), and
+    ``nan_share_1d`` / ``nan_bytes_rem_1d`` (the card tests' cases: 2 % of
+    the shares, 1 % of the remaining bytes NaN)."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.router_tick import (
-        router_rate_drain_cuda, router_rate_drain_plain)
+    from test_torch_router_tick_cuda import _edge_inputs, _on, padded_routes
 
-    t0 = time.perf_counter()
-    rows = []
-    for i, (M, L) in enumerate(((65536, 53857), (65573, 73921))):
-        rng = np.random.default_rng(200 + i)
-        args = [torch.as_tensor(a, device=dev) for a in (
+    def random_args(M, L, seed):
+        rng = np.random.default_rng(seed)
+        return [torch.as_tensor(a, device=dev) for a in (
             rng.integers(-1, L, size=(M, 10), dtype=np.int32),
             (rng.random(M, dtype=np.float32) * 1e5).astype(np.float32),
             rng.random(M) < 0.5,
             (rng.random(L, dtype=np.float32) * 1e3 + 1.0).astype(np.float32))]
+
+    cases = {"random_1d": random_args(65536, 53857, 200),
+             "random_2d": random_args(65573, 73921, 201)}
+    cases["padded_rows_1d"] = [torch.as_tensor(padded_routes(
+        65536, 10, 53857, np.random.default_rng(202)), device=dev)
+    ] + cases["random_1d"][1:]
+    for case in ("nan_share", "nan_bytes_rem"):
+        cases[f"{case}_1d"] = _on(_edge_inputs(case, 65536, 10, 53856), dev)
+    return cases
+
+
+def phase_router(dev):
+    """The route-rate-drain against its plain version on ``router_cases``,
+    bit for bit (NaN where the plain version has NaN); device and call
+    times, the plain version's time and the byte bound for each."""
+    import torch
+
+    from repro_torch.kernels.router_tick import (
+        router_rate_drain_cuda, router_rate_drain_plain)
+    from test_torch_router_tick_cuda import same_bits
+
+    t0 = time.perf_counter()
+    rows = []
+    for case, args in router_cases(dev).items():
         k = router_rate_drain_cuda(*args, 5.0)
         p = router_rate_drain_plain(*args, 5.0)
         torch.cuda.synchronize()
         for name, a, b in zip(("new_rem", "rate", "drained"), k, p):
-            need(torch.equal(a, b),
-                 f"router_rate_drain {name}: kernel != plain")
-        moved = sum(a.numel() * a.element_size() for a in args) + M * 9
+            need(same_bits(a, b),
+                 f"router_rate_drain {case} {name}: kernel != plain")
+        routes, _, active, share = args
+        bound_ms, moved = router_bound_ms(args)
         rows.append(dict(
-            M=M, L=L,
-            max_abs_err=max(float((a.float() - b.float()).abs().max())
-                            for a, b in zip(k, p)),
+            case=case, M=routes.shape[0], L=share.shape[0],
+            active=int(active.sum()),
+            pad_entries=int((routes < 0).sum()),
+            nan=int(torch.isnan(share).sum() + torch.isnan(args[1]).sum()),
+            max_abs_err=max(float((a.float() - b.float()).abs().nan_to_num()
+                                  .max()) for a, b in zip(k, p)),
             kernel_ms=device_ms(lambda: router_rate_drain_cuda(*args, 5.0)),
             kernel_call_ms=time_ms(lambda: router_rate_drain_cuda(*args, 5.0)),
             plain_ms=time_ms(lambda: router_rate_drain_plain(*args, 5.0)),
-            bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            bytes=moved))
+            bound_ms=bound_ms, bound_by="bytes", bytes=moved))
     emit(dict(phase="router_rate_drain_vs_plain",
               seconds=time.perf_counter() - t0, exact=True, cases=rows))
     return rows
+
+
+def live_router_args(st, rs, dev):
+    """The route-rate-drain's inputs for a live member state: its pool and
+    the share table of that state, ``bw_run / max(n, 1) * 1e-6`` with n
+    the active route entries on each link (plain PyTorch operations, the
+    drain tick's arithmetic)."""
+    import torch
+
+    bw_run = live_drain_args(st, rs, dev)[7][0]
+    p = st.pool
+    valid = (p.routes >= 0) & p.active[:, None]
+    n = torch.bincount(p.routes[valid].long(), minlength=bw_run.shape[0])
+    share = bw_run / torch.clamp(n.to(torch.float32), min=1.0) * 1e-6
+    return [p.routes, p.bytes_rem, p.active, share], float(rs.net.tick_us)
 
 
 # ---------------------------------------------------------------------------
@@ -876,10 +944,14 @@ def phase_paper(name, cfg, dev):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.drain_tick import drain_tick_cuda
+    from repro_torch.kernels.drain_tick import (
+        drain_tick_cuda, drain_tick_plain)
     from repro_torch.kernels.link_demand import link_demand_cuda
+    from repro_torch.kernels.router_tick import (
+        router_rate_drain_cuda, router_rate_drain_plain)
     from repro_torch.launch.sim import run_sim
     from repro_torch.union.seeds import engine_seed
+    from test_torch_router_tick_cuda import same_bits
 
     kw = dict(scale=cfg["scale"], seed=0, horizon_ms=cfg["horizon_ms"],
               tick_us=5.0)
@@ -931,14 +1003,28 @@ def phase_paper(name, cfg, dev):
             err = compare_drain(args, n_apps, R)
             pool = [x[None] for x in (st.pool.routes, st.pool.active,
                                       st.pool.bytes_rem)]
+            # the route-rate-drain on this pool and its state's shares: its
+            # plain version's bits, and the drain tick's rate
+            rargs, dt = live_router_args(st, rs, dev)
+            k = router_rate_drain_cuda(*rargs, dt)
+            pk = router_rate_drain_plain(*rargs, dt)
+            for what, a, b in zip(("new_rem", "rate", "drained"), k, pk):
+                need(same_bits(a, b), f"{name}: route-rate-drain {what} "
+                     f"!= plain on the live pool at tick {i}")
+            need(same_bits(k[1], drain_tick_plain(*args, n_apps, R)[1][0]),
+                 f"{name}: route-rate-drain rate != the drain tick's on "
+                 f"the live pool at tick {i}")
             sampled.append(dict(
                 tick=i, active=int(st.pool.active.sum()), max_abs_err=err,
                 route_parity=route_parity(st, rs, dev, i),
+                router_rate_drain_exact=True,
                 live_ms=dict(
                     drain_tick=device_ms(
                         lambda: drain_tick_cuda(*args, n_apps, R)),
                     link_demand=device_ms(
-                        lambda: link_demand_cuda(*pool, L)))))
+                        lambda: link_demand_cuda(*pool, L)),
+                    router_rate_drain=device_ms(
+                        lambda: router_rate_drain_cuda(*rargs, dt)))))
         i += 1
     need(len(sampled) >= 2, f"{name}: only {len(sampled)} sampled ticks had "
          "messages in flight")
@@ -970,6 +1056,9 @@ def phase_paper(name, cfg, dev):
               card_vs_cpu=against_cpu, profile=prof))
     return dict(drain_tick=launches, link_demand=demand_launches,
                 router_rate_drain=router_launches,
+                router_live=dict(
+                    tick=sampled[0]["tick"], active=sampled[0]["active"],
+                    ms=sampled[0]["live_ms"]["router_rate_drain"]),
                 link_demand_max_abs_err=max(
                     s["route_parity"]["demand_max_abs_err"]
                     for s in sampled)), delivered
@@ -1200,7 +1289,10 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in rtr),
              ms=rtr[0]["kernel_ms"], plain_ms=rtr[0]["plain_ms"],
              bound_ms=rtr[0]["bound_ms"], bound_by=rtr[0]["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             # device time on the live 1D paper pool (first sampled tick)
+             live_ms=launches1["router_live"]["ms"],
+             live_tick=launches1["router_live"]["tick"]),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,7 +60,11 @@
 // the file is compiled without fast math and with --fmad=false, so every
 // float result is the correctly rounded IEEE value the reference computes.
 // The delivery threshold is the float literal 1e-6f: with a double literal
-// the compare would run in double and deliver on another tick.
+// the compare would run in double and deliver on another tick. Both
+// minima keep a NaN (sim_rows::nan_min), as torch.amin and torch.minimum
+// do: a NaN bandwidth gives its messages a rate of 0, and a NaN rem
+// drains NaN bytes into the byte deltas. fminf would drop the NaN and
+// drain those messages.
 //
 // nvcc-flags: --fmad=false
 
@@ -206,13 +210,14 @@ __global__ void drain_kernel(const int32_t* __restrict__ routes,
           if (l[j] < 0) continue;
           if (c[j] > kHot && k0 + j < 32) hot |= 1u << (k0 + j);
           const float nl = fmaxf((float)c[j], 1.0f);
-          rmin = fminf(rmin, __fmul_rn(__fdiv_rn(w[j], nl), 1e-6f));
+          rmin = sim_rows::nan_min(
+              rmin, __fmul_rn(__fdiv_rn(w[j], nl), 1e-6f));
         }
       }
     }
   }
   const float rate = (act && isfinite(rmin)) ? rmin : 0.0f;
-  const float drain = fminf(__fmul_rn(rate, dt), rem);
+  const float drain = sim_rows::nan_min(__fmul_rn(rate, dt), rem);
   const float left = __fsub_rn(rem, drain);
   if (in) {
     new_rem[msg] = left;

@@ -8,6 +8,9 @@
 // 16-byte boundary and after the last), every lane on neighbouring
 // addresses, and each lane then reads its own row from shared memory. A
 // warp whose 32 messages are all inactive reads no row at all.
+//
+// nan_min, the least share on a route, serves drain_tick.cu and
+// router_tick.cu.
 
 #pragma once
 
@@ -40,6 +43,15 @@ __device__ __forceinline__ void warp_stage(const int32_t* __restrict__ src,
   for (int i = head + 4 * n_vec + lane; i < n_words; i += 32)
     dst[i] = __ldg(src + i);
   __syncwarp();
+}
+
+// The smaller of a and b, and NaN if either is NaN, as jnp.min and
+// torch.amin take a minimum (fminf returns the other operand and so drops
+// a NaN): PTX min.NaN (sm_80 and later), one instruction as min is.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // Warps per block for kernels that stage 32 rows of K words per warp:

@@ -7,19 +7,21 @@ only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_drain_tick_cuda.py
 
-new_rem, rate and delivered must equal the plain version exactly; the
-byte deltas, summed by float atomics in run-to-run varying order, to
-rtol 1e-5: of the plain version's, and in the hard cases (where one entry
-takes up to 300,000 equal adds, and the plain version's own float32 sums
-are up to about 1e-4 off) of the same sums taken in float64. The numpy
-input generators here are shared with ``tests/test_torch_drain_tick.py``
-and ``chip_smoke.py``.
+new_rem, rate and delivered must equal the plain version bit for bit (a
+NaN where the plain version has a NaN); the byte deltas, summed by float
+atomics in run-to-run varying order, to rtol 1e-5 with NaN where the
+reference has NaN: of the plain version's, and in the hard cases (where
+one entry takes up to 300,000 equal adds, and the plain version's own
+float32 sums are up to about 1e-4 off) of the same sums taken in
+float64. The numpy input generators here are shared with
+``tests/test_torch_drain_tick.py`` and ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
+from test_torch_router_tick_cuda import same_bits
 
 EXACT = ("new_rem", "rate", "delivered")
 SUMS = ("link_bytes_delta", "router_win_delta")
@@ -60,6 +62,8 @@ HARD = {  # case: (B, M, L, A, R, per-member bandwidth rows)
     "mid_row_padding": (1, 65536, 53856, 5, 1056, False),
     "three_members": (3, 65536, 53856, 5, 1056, True),
     "large_window_table": (1, 65536, 53856, 64, 2112, False),
+    "nan_bandwidth": (1, 65536, 53856, 5, 1056, False),
+    "nan_bytes_rem": (1, 65536, 53856, 5, 1056, False),
 }
 
 
@@ -71,7 +75,10 @@ def _hard_inputs(case, B, M, L, A, R, per_member, seed=6):
     random slots between valid links; ``three_members`` gives each member
     its own share of active messages and its own bandwidth row with dead
     links; ``large_window_table`` has a router-window table too large for
-    a block's shared memory (64 apps x 2,112 routers)."""
+    a block's shared memory (64 apps x 2,112 routers); ``nan_bandwidth``
+    makes 2 % of the links' bandwidth NaN (their messages take rate 0)
+    and ``nan_bytes_rem`` 1 % of the remaining bytes (NaN new_rem, and NaN
+    byte deltas on their routes)."""
     x = _inputs(B, M, 10, L, A, R, seed)
     rng = np.random.default_rng(seed + 1)
     r = x["routes"]
@@ -88,6 +95,10 @@ def _hard_inputs(case, B, M, L, A, R, per_member, seed=6):
     elif case == "three_members":
         x["active"] = rng.random((B, M)) < np.asarray([0.05, 0.5, 0.95])[
             :B, None]
+    elif case == "nan_bandwidth":
+        x["bw_eff"][:L][rng.random(L) < 0.02] = np.nan
+    elif case == "nan_bytes_rem":
+        x["bytes_rem"][rng.random((B, M)) < 0.01] = np.nan
     return x
 
 
@@ -103,9 +114,10 @@ def _args(x, device):
 def _assert_kernel_matches(k, p):
     for name, a, b in zip(EXACT + SUMS, k, p):
         if name in EXACT:
-            assert torch.equal(a, b), name
+            assert same_bits(a, b), name
         else:
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=name)
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0,
+                                       equal_nan=True, msg=name)
 
 
 def float64_deltas(args, rate, n_apps, n_routers):
@@ -158,11 +170,7 @@ def test_kernel_matches_plain_on_card(cuda_device, B, M, L, A, R, per_member):
     k = drain_tick_cuda(*args, 5.0, bw, ldr, A, R)
     p = drain_tick_plain(*args, 5.0, bw, ldr, A, R)
     torch.cuda.synchronize()
-    for name, a, b in zip(EXACT + SUMS, k, p):
-        if name in EXACT:
-            assert torch.equal(a, b), name
-        else:
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=name)
+    _assert_kernel_matches(k, p)
 
 
 @pytest.mark.cuda
@@ -174,9 +182,10 @@ def test_kernel_matches_plain_on_hard_cases(cuda_device, case):
     p = drain_tick_plain(*args, A, R)
     torch.cuda.synchronize()
     for name, a, b in zip(EXACT, k, p):
-        assert torch.equal(a, b), name
+        assert same_bits(a, b), name
     for name, a, b in zip(SUMS, k[3:], float64_deltas(args, k[1], A, R)):
         torch.testing.assert_close(a.cpu().double(), b, rtol=1e-5, atol=0,
+                                   equal_nan=True,
                                    msg=lambda m, name=name: f"{name}: {m}")
 
 
