@@ -37,25 +37,42 @@ its seconds, and any failure raises (non-zero exit, no result line):
    2D shapes (almost no -1 in them), the engine's padded rows, and NaN
    shares and remaining bytes (``tests/test_torch_router_tick_cuda.py``);
    times and the byte bound;
-6. the two engine goldens of ``tests/data_engine_golden.json`` on the card;
+6. the two engine goldens of ``tests/data_engine_golden.json`` on the card,
+   each through the engine's ``run`` (replays of a captured CUDA graph)
+   and through an eager loop of ``tick``;
 7. the paper-scale simulator on the 1D dragonfly (Table II, 8,448 nodes;
-   workload1 + UR, 65,536-message pool) through ``run_sim`` with the
-   launch counts set to 0 just before and read just after; the rate is
+   workload1 + UR, 65,536-message pool) through ``run_sim`` (graph
+   replays) with the launch counts set to 0 just before and read just
+   after: the wrappers count while a graph is captured, so a run's
+   launches are its replays times its graph's captured launches, and the
+   drain tick's and link demand's must equal the ticks run; the rate is
    virtual milliseconds simulated per wall second (a tick's virtual time
-   varies with the idle-time skip, and the host loop checks liveness once
-   per 64 ticks, so drain calls are not simulated work); at sampled ticks
-   of a second run, the drain kernel against the plain version on the live
+   varies with the idle-time skip, and liveness is read once per 64
+   ticks, so drain calls are not simulated work), with the graph's
+   capture and instantiate seconds and the replays' device ms a tick
+   (CUDA events); then an eager loop of ``tick`` from the same seed: at
+   sampled ticks, the drain kernel against the plain version on the live
    pool, and the link demand and UGAL route choices on the card against
    the CPU's, bit for bit, and the drain tick's and link demand's device
    times on that pool (``live_ms``); the route-rate-drain on that pool
    with the share table of its state, against its plain version, and its
    device time there (``live_ms``, 0 launches counted: no path calls it);
-   the first 128 ticks on the card and on the port's CPU
-   path, whose integer trajectory and pool must have equal digests every
-   64 ticks; two more runs with one seed must give one integer
-   trajectory; a profile of 20 ticks (device time by kernel, the device's
-   busy share, each wrapper's device time and operations a tick);
-8. the paper-scale 2D dragonfly (workload3) the same way, shorter;
+   a profile of 20 eager ticks (device time by kernel, the device's busy
+   share, each wrapper's device time and operations a tick); the eager
+   loop's end state must have a graph run's integer-trajectory and pool
+   digests and float sums within rtol 1e-5; the graph replays of the last
+   chunk under the profiler (busy share); the first 128 eager ticks on
+   the card and on the port's CPU path with equal digests every 64 ticks;
+8. ``paper_1d_members``: four members of one batch at the 1D paper scale
+   (seeds 0-3 with their own placements; member 2 with slowed ranks,
+   member 3 with 2 % of the fabric links dead), each equal (digests) to
+   its own B = 1 run; member-virtual-ms per wall s, device ms a tick and
+   peak device memory at B = 1, 4 and 8;
+   ``paper_1d_observed``: the 1D run to 2 ms with the histograms and
+   probes compiled in: its plain leaves have the plain run's digests,
+   its histogram and probe counts are consistent; the observers' device
+   ms a tick; then the paper-scale 2D dragonfly (workload3) as in 7,
+   shorter;
 9. Mamba-2 370M at full width (48 layers, seeded random weights, float32
    weights, bfloat16 compute) through ``make_prefill_step`` on 8 requests
    x 4,096 tokens, counted like the simulator: prefill tokens per second,
@@ -623,49 +640,6 @@ def live_router_args(st, rs, dev):
 # phase 6: engine goldens on the card
 # ---------------------------------------------------------------------------
 
-PP = (
-    "For 4 repetitions {\n"
-    " task 0 sends a 4096 byte message to task 1 then\n"
-    " task 1 sends a 4096 byte message to task 0 }"
-)
-AR = (
-    "For 3 repetitions {\n"
-    " all tasks allreduce a 65536 byte message then\n"
-    " all tasks compute for 200 microseconds }"
-)
-COLL = (
-    "For 2 repetitions {\n"
-    " all tasks exchange a 2048 byte message with their neighbors"
-    " in a 2x2x2 grid then\n"
-    " task 0 multicasts a 4096 byte message to all other tasks then\n"
-    " all tasks allreduce a 512 byte message then\n"
-    " task 0 asynchronously sends a 1024 byte message to all other tasks then\n"
-    " all tasks synchronize then\n"
-    " all tasks compute for 50 microseconds }"
-)
-
-
-def golden_scenarios():
-    from repro_torch.union.scenario import Scenario, ScenarioJob, URDecl
-
-    mix = Scenario(
-        name="equiv-mix",
-        jobs=[ScenarioJob(app="ar8", source=AR, ranks=8),
-              ScenarioJob(app="pp2", source=PP, ranks=2, start_us=700.0)],
-        placement="RN", routing="ADP",
-        ur=URDecl(ranks=16, size_bytes=4096.0, interval_us=300.0),
-        tick_us=2.0, horizon_ms=80.0, pool_size=512,
-    )
-    coll = Scenario(
-        name="equiv-coll",
-        jobs=[ScenarioJob(app="coll8", source=COLL, ranks=8),
-              ScenarioJob(app="pp2", source=PP, ranks=2, start_us=150.0)],
-        placement="RN", routing="ADP", tick_us=2.0, horizon_ms=60.0,
-        pool_size=512,
-    )
-    return {"equiv-mix": (mix, 3), "equiv-coll": (coll, 5)}
-
-
 def check_golden(st, rs, g):
     """The contract of tests/test_engine_equivalence.py: the integer
     trajectory exact, float sums to rtol 1e-5."""
@@ -701,19 +675,33 @@ def check_golden(st, rs, g):
 
 
 def phase_goldens(dev):
+    """Both engine goldens through the graph ``run`` and through an eager
+    loop of ``tick`` (liveness read every 64 ticks, as ``run`` does), each
+    held to the golden contract; then the report golden through
+    ``run_scenario``."""
     import numpy as np
 
     from repro_torch.union import manager as MGR
     from repro_torch.union.seeds import engine_seed
+    from test_torch_engine_graph_cuda import eager_run, golden_scenarios
 
     t0 = time.perf_counter()
     with open(GOLDEN) as f:
         golden = json.load(f)
+    runs = {}
     for case, (sc, seed) in golden_scenarios().items():
         rs = MGR.resolve(sc, seed=seed)
-        init, run, _ = MGR.build(rs, device=dev)
-        check_golden(run(init(seed=engine_seed(seed))), rs,
+        eng = MGR.build(rs, device=dev)
+        check_golden(eng.run(eng.init_state(seed=engine_seed(seed))), rs,
                      golden[case]["state"])
+        stats = eng.last_run
+        need(stats.replays > 0 and stats.graph_launches["drain_tick"]
+             == stats.graph_ticks, f"goldens {case}: the run replayed no "
+             "graph of drain ticks")
+        check_golden(eager_run(eng, eng.init_state(seed=engine_seed(seed)),
+                               rs.horizon_us), rs, golden[case]["state"])
+        runs[case] = dict(ticks=stats.ticks, graph_ticks=stats.graph_ticks,
+                          replays=stats.replays)
     sc, seed = golden_scenarios()["equiv-mix"]
     rep = MGR.run_scenario(sc, seed=seed, device=dev)
     g = golden["equiv-mix"]
@@ -726,7 +714,7 @@ def phase_goldens(dev):
             np.testing.assert_allclose(got["avg_us"], want["avg_us"], rtol=1e-5)
             np.testing.assert_allclose(got["max_us"], want["max_us"], rtol=1e-5)
     emit(dict(phase="goldens", seconds=time.perf_counter() - t0,
-              cases=sorted(golden), ok=True))
+              cases=sorted(golden), graph_and_eager=True, runs=runs, ok=True))
 
 
 # ---------------------------------------------------------------------------
@@ -892,6 +880,23 @@ def kernel_named(key, name):
     return f"::{name}(" in key or f"::{name}<" in key
 
 
+def wrapper_kernels(rows, n, what):
+    """Each simulator wrapper's kernels in a profile of ``n`` ticks, found
+    by name: every one of them must have run ``n`` times, once a tick.
+    Returns each wrapper's device time and device operations a tick."""
+    wrappers = {}
+    for wrapper, names in WRAPPER_KERNELS.items():
+        for k in names:
+            runs = sum(r[1] for r in rows if kernel_named(r[2], k))
+            need(runs == n, f"{what}: {wrapper}'s {k} ran {runs} times "
+                 f"in {n} ticks")
+        mine = [r for r in rows if any(kernel_named(r[2], k) for k in names)]
+        wrappers[wrapper] = dict(
+            device_us_per_tick=sum(r[0] for r in mine) / n,
+            device_ops_per_tick=sum(r[1] for r in mine) / n)
+    return wrappers
+
+
 def profile_ticks(eng, st, n=20):
     """Device time by kernel over ``n`` ticks and the device's busy share
     of the wall time; each wrapper's device time and device operations a
@@ -906,29 +911,21 @@ def profile_ticks(eng, st, n=20):
 
     st, wall_us, rows = device_profile(ticks)
     busy_us = sum(r[0] for r in rows)
-    wrappers = {}
-    for wrapper, names in WRAPPER_KERNELS.items():
-        mine = [r for r in rows if any(kernel_named(r[2], k) for k in names)]
-        ops_per_tick = sum(r[1] for r in mine) / n
-        need(ops_per_tick == len(names),
-             f"profile: {wrapper} issued {ops_per_tick} of its kernels a "
-             f"tick, want {len(names)} ({names})")
-        wrappers[wrapper] = dict(device_us_per_tick=sum(r[0] for r in mine)
-                                 / n, device_ops_per_tick=ops_per_tick)
     return st, dict(
         ticks=n, wall_ms_per_tick=wall_us / n / 1e3,
         device_ms_per_tick=busy_us / n / 1e3,
         device_busy_share=busy_us / wall_us,
-        wrappers=wrappers,
+        wrappers=wrapper_kernels(rows, n, "profile"),
         device_kernels_per_tick=sum(r[1] for r in rows) / n,
         top=[dict(name=k[:70], us_per_tick=us / n, calls_per_tick=c / n)
              for us, c, k in rows[:8]],
     )
 
 
-def paper_engine(cfg, dev):
-    """The paper scenario ``cfg`` resolved (seed 0) and built on ``dev``:
-    (resolved scenario, engine, number of app slots)."""
+def paper_engine(cfg, dev, **build_kw):
+    """The paper scenario ``cfg`` resolved (seed 0) and built on ``dev``
+    (``build_kw``: the observers): (resolved scenario, engine, number of
+    app slots)."""
     from repro_torch.union import manager as MGR
     from repro_torch.union.scenario import mix_scenario
 
@@ -936,10 +933,67 @@ def paper_engine(cfg, dev):
                       placement="RG", routing="ADP", tick_us=5.0,
                       horizon_ms=cfg["horizon_ms"])
     rs = MGR.resolve(sc, seed=0)
-    return rs, MGR.build(rs, device=dev), len(rs.padded_app_names(rs.capacity))
+    return (rs, MGR.build(rs, device=dev, **build_kw),
+            len(rs.padded_app_names(rs.capacity)))
+
+
+def replayed_counts(run):
+    """The kernel wrappers' launches and calls of a run on the card (a
+    ``RunStats`` as a dict): each replay runs what its graph captured,
+    and the wrappers count only while a graph is captured."""
+    return ({k: run["replays"] * v for k, v in run["graph_launches"].items()},
+            {k: run["replays"] * v for k, v in run["graph_calls"].items()})
+
+
+FLOAT_SUMS = ("lat_sum", "link_bytes", "router_wins", "comm_time")
+
+
+def float_sums(st):
+    """Float sums of a member state that the contract holds to rtol 1e-5
+    (float atomics on the card sum in no fixed order)."""
+    from repro_torch.netsim.state_io import state_to_numpy
+
+    s = state_to_numpy(st)
+    m = s.metrics
+    return dict(lat_sum=m.lat_sum.astype("float64"),
+                link_bytes=m.link_bytes.sum(dtype="float64"),
+                router_wins=m.router_wins.sum(axis=(0, 2), dtype="float64"),
+                comm_time=s.vms.comm_time.sum(axis=1, dtype="float64"))
+
+
+def same_run(a, b, what):
+    """Two member states of one scenario: equal integer-trajectory and pool
+    digests, float sums within rtol 1e-5."""
+    import numpy as np
+
+    da, db = trajectory_digests(a), trajectory_digests(b)
+    need(da == db, f"{what}: digests differ in "
+         f"{sorted(k for k in da if da[k] != db[k])}")
+    fa, fb = float_sums(a), float_sums(b)
+    for k in FLOAT_SUMS:
+        need(np.allclose(fa[k], fb[k], rtol=1e-5, atol=0.0),
+             f"{what}: float sums of {k} beyond rtol 1e-5")
+
+
+def live_any(st, horizon_us):
+    """``run``'s liveness read of a member state (one host sync)."""
+    from repro_torch.netsim.engine import member_live
+
+    return bool(member_live(st, horizon_us))
+
+
+PROFILE_AT = 11  # the eager 20-tick profile starts here (inside one chunk)
+CHUNK = 64  # ticks between liveness reads, as ``run``'s default
 
 
 def phase_paper(name, cfg, dev):
+    """The paper run on ``cfg``: counted through ``run_sim`` (graph
+    replays), then an eager loop of ``tick`` from the same seed (sampled
+    ticks, the 20-tick profile, liveness every 64 ticks as ``run``) held
+    to a graph ``run`` by digests, the graph replays profiled over the last
+    chunk, and the first 128 eager ticks held to the CPU path."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -963,105 +1017,318 @@ def phase_paper(name, cfg, dev):
     rep = run_sim(cfg["workload"], cfg["topo"], "RG", "ADP", device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.LAUNCHES["drain_tick"]
-    calls = ops.CALLS["drain_tick"]
+    counted = dict(launches=dict(ops.LAUNCHES), calls=dict(ops.CALLS))
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    need(launches > 0, f"{name}: the drain kernel was never launched")
-    need(launches == calls,
-         f"{name}: {launches} kernel launches for {calls} drain calls")
-    demand_launches = ops.LAUNCHES["link_demand"]
-    need(demand_launches == ops.CALLS["link_demand"] == calls,
-         f"{name}: {demand_launches} link-demand launches for "
-         f"{ops.CALLS['link_demand']} calls and {calls} ticks")
-    router_launches = ops.LAUNCHES["router_rate_drain"]
-    need(router_launches == ops.CALLS["router_rate_drain"],
-         f"{name}: {router_launches} route-rate-drain launches for "
-         f"{ops.CALLS['router_rate_drain']} calls")
+    run = rep["engine_run"]
+    launches, calls = replayed_counts(run)
+    ticks = run["ticks"]
+    need(run["device"] == "cuda" and run["replays"] > 0,
+         f"{name}: run_sim replayed no graph")
+    need(launches["drain_tick"] > 0, f"{name}: the drain kernel was never "
+         "launched")
+    for k in ("drain_tick", "link_demand"):
+        need(launches[k] == calls[k] == ticks,
+             f"{name}: {launches[k]} {k} launches for {calls[k]} calls and "
+             f"{ticks} ticks")
+        # what the wrappers counted: one eager warm-up tick, then the
+        # graph's ticks while it was captured
+        need(counted["launches"][k] == counted["calls"][k]
+             == run["graph_ticks"] + 1,
+             f"{name}: {k} counted {counted['launches'][k]} launches, "
+             f"{counted['calls'][k]} calls in the window")
+    need(launches["router_rate_drain"] == calls["router_rate_drain"]
+         and counted["launches"]["router_rate_drain"]
+         == counted["calls"]["router_rate_drain"],
+         f"{name}: route-rate-drain launches != calls")
     need(rep["dropped"] == 0, f"{name}: {rep['dropped']} messages dropped")
     delivered = {app: v.get("count", 0) for app, v in rep["latency"].items()}
 
-    # the same scenario again through the manager: the kernel against its
-    # plain version, and demand sums and routes against the CPU's, on live
-    # pool states at sampled ticks, then the rest of the run; a third run
-    # must end in the same integer trajectory
+    # the same scenario again through the manager, as an eager tick loop:
+    # the kernel against its plain version, and demand sums and routes
+    # against the CPU's, on live pools at sampled ticks
     rs, eng, n_apps = paper_engine(cfg, dev)
     st = eng.init_state(seed=engine_seed(0))
     # five sample points spread over the run; a point whose pool is empty
     # moves on to the next tick with messages in flight
-    targets = sorted({int(x) for x in np.linspace(10, calls - 10, 5)})
-    sampled = []
-    i = 0
-    while i < calls and len(sampled) < len(targets):
-        if i == targets[0] + 1:  # profile 20 ticks early in the run
+    targets = sorted({int(x) for x in np.linspace(10, ticks - 10, 5)})
+    sampled, prof, late = [], None, None
+    i, eager_s = 0, 0.0
+    while True:
+        if i % CHUNK == 0:
+            t1 = time.perf_counter()
+            alive = live_any(st, rs.horizon_us)
+            eager_s += time.perf_counter() - t1
+            if not alive:
+                break
+            if i == ticks - CHUNK:
+                late = st  # the graph profile's start: the last chunk
+        if i == PROFILE_AT:
             st, prof = profile_ticks(eng, st)
             i += prof["ticks"]
             continue
+        t1 = time.perf_counter()
         st = eng.tick(st)
-        if i >= targets[len(sampled)] and bool(st.pool.active.any()):
-            args = live_drain_args(st, rs, dev)
-            R, L = rs.topo.n_routers, rs.topo.n_links
-            err = compare_drain(args, n_apps, R)
-            pool = [x[None] for x in (st.pool.routes, st.pool.active,
-                                      st.pool.bytes_rem)]
-            # the route-rate-drain on this pool and its state's shares: its
-            # plain version's bits, and the drain tick's rate
-            rargs, dt = live_router_args(st, rs, dev)
-            k = router_rate_drain_cuda(*rargs, dt)
-            pk = router_rate_drain_plain(*rargs, dt)
-            for what, a, b in zip(("new_rem", "rate", "drained"), k, pk):
-                need(same_bits(a, b), f"{name}: route-rate-drain {what} "
-                     f"!= plain on the live pool at tick {i}")
-            need(same_bits(k[1], drain_tick_plain(*args, n_apps, R)[1][0]),
-                 f"{name}: route-rate-drain rate != the drain tick's on "
-                 f"the live pool at tick {i}")
-            sampled.append(dict(
-                tick=i, active=int(st.pool.active.sum()), max_abs_err=err,
-                route_parity=route_parity(st, rs, dev, i),
-                router_rate_drain_exact=True,
-                live_ms=dict(
-                    drain_tick=device_ms(
-                        lambda: drain_tick_cuda(*args, n_apps, R)),
-                    link_demand=device_ms(
-                        lambda: link_demand_cuda(*pool, L)),
-                    router_rate_drain=device_ms(
-                        lambda: router_rate_drain_cuda(*rargs, dt)))))
+        eager_s += time.perf_counter() - t1
         i += 1
+        if len(sampled) == len(targets) or i - 1 < targets[len(sampled)] \
+                or not bool(st.pool.active.any()):
+            continue
+        args = live_drain_args(st, rs, dev)
+        R, L = rs.topo.n_routers, rs.topo.n_links
+        err = compare_drain(args, n_apps, R)
+        pool = [x[None] for x in (st.pool.routes, st.pool.active,
+                                  st.pool.bytes_rem)]
+        # the route-rate-drain on this pool and its state's shares: its
+        # plain version's bits, and the drain tick's rate
+        rargs, dt = live_router_args(st, rs, dev)
+        k = router_rate_drain_cuda(*rargs, dt)
+        pk = router_rate_drain_plain(*rargs, dt)
+        for what, a, b in zip(("new_rem", "rate", "drained"), k, pk):
+            need(same_bits(a, b), f"{name}: route-rate-drain {what} "
+                 f"!= plain on the live pool at tick {i - 1}")
+        need(same_bits(k[1], drain_tick_plain(*args, n_apps, R)[1][0]),
+             f"{name}: route-rate-drain rate != the drain tick's on "
+             f"the live pool at tick {i - 1}")
+        sampled.append(dict(
+            tick=i - 1, active=int(st.pool.active.sum()), max_abs_err=err,
+            route_parity=route_parity(st, rs, dev, i - 1),
+            router_rate_drain_exact=True,
+            live_ms=dict(
+                drain_tick=device_ms(
+                    lambda: drain_tick_cuda(*args, n_apps, R)),
+                link_demand=device_ms(
+                    lambda: link_demand_cuda(*pool, L)),
+                router_rate_drain=device_ms(
+                    lambda: router_rate_drain_cuda(*rargs, dt)))))
+    eager = st
+    need(i == ticks, f"{name}: the eager loop ran {i} ticks, the graph run "
+         f"{ticks}")
     need(len(sampled) >= 2, f"{name}: only {len(sampled)} sampled ticks had "
          "messages in flight")
+    need(late is not None, f"{name}: no state at tick {ticks - CHUNK}")
+
+    # the graph run from the same seed on this engine (it captures its
+    # graph here): the eager loop's digests and float sums
+    graph = eng.run(eng.init_state(seed=engine_seed(0)))
+    same_run(graph, eager, f"{name}: graph run vs eager ticks")
+    graph_stats = dataclasses.asdict(eng.last_run)
+    # the graph replays of the last chunk under the profiler
+    out, wall_us, rows = device_profile(lambda: eng.run(late))
+    same_run(out, eager, f"{name}: graph run of the last chunk vs eager")
+    busy_us = sum(r[0] for r in rows)
+    n_prof = eng.last_run.ticks
+    need(n_prof == CHUNK and eng.last_run.replays > 0,
+         f"{name}: the profiled run replayed {n_prof} ticks, want {CHUNK}")
+    # on the device: the replays ran each simulator kernel once a tick
+    graph_prof = dict(
+        ticks=n_prof, wall_ms_per_tick=wall_us / n_prof / 1e3,
+        device_ms_per_tick=busy_us / n_prof / 1e3,
+        device_busy_share=busy_us / wall_us,
+        wrappers=wrapper_kernels(rows, n_prof, f"{name}: graph profile"),
+        device_kernels_per_tick=sum(r[1] for r in rows) / n_prof)
     against_cpu = card_vs_cpu(name, rs, eng)
-    second = trajectory(eng.run(st))
-    third = trajectory(eng.run(eng.init_state(seed=engine_seed(0))))
-    for k in TRAJECTORY:
-        need(np.array_equal(second[k], third[k]),
-             f"{name}: two runs with one seed differ in {k}")
-    need(float(second["t"]) / 1000.0 == rep["virtual_time_ms"],
+    lat_cnt = trajectory(eager)["lat_cnt"].tolist()
+    need(float(eager.t) / 1000.0 == rep["virtual_time_ms"],
          f"{name}: the counted run ended at another time")
-    lat_cnt = second["lat_cnt"].tolist()
     need([delivered[a] for a in rep["latency"]]
          == [c for a, c in zip(rs.padded_app_names(rs.capacity), lat_cnt)
              if a is not None],
          f"{name}: the counted run delivered other counts")
+    virtual_ms = rep["virtual_time_ms"]
     emit(dict(phase=name, seconds=time.perf_counter() - t0,
               workload=cfg["workload"], topo=cfg["topo"],
               horizon_ms=cfg["horizon_ms"], nodes=rs.topo.n_nodes,
               links=rs.topo.n_links, pool=rs.pool_size,
-              virtual_time_ms=rep["virtual_time_ms"], wall_s=wall,
-              virtual_ms_per_wall_s=rep["virtual_time_ms"] / wall,
-              drain_calls=calls, drain_launches=launches,
-              link_demand_launches=demand_launches,
-              router_rate_drain_launches=router_launches,
+              virtual_time_ms=virtual_ms, wall_s=wall,
+              virtual_ms_per_wall_s=virtual_ms / wall,
+              ticks=ticks, graph_ticks=run["graph_ticks"],
+              replays=run["replays"], liveness_reads=run["liveness_reads"],
+              capture_s=run["capture_s"], instantiate_s=run["instantiate_s"],
+              replay_device_ms=run["replay_device_ms"],
+              replay_device_ms_per_tick=run["replay_device_ms"] / ticks,
+              replay_share_of_wall=run["replay_device_ms"] / (wall * 1e3),
+              graph_profile=graph_prof,
+              graph_rerun=dict(
+                  capture_s=graph_stats["capture_s"],
+                  instantiate_s=graph_stats["instantiate_s"],
+                  replay_device_ms_per_tick=graph_stats["replay_device_ms"]
+                  / graph_stats["ticks"]),
+              # host seconds of the eager loop's ticks and liveness reads
+              # (the profiled ticks and the sampled ticks' checks left
+              # out), scaled to the run's ticks
+              eager_wall_s=eager_s * ticks / (ticks - prof["ticks"]),
+              eager_virtual_ms_per_wall_s=virtual_ms * (ticks - prof["ticks"])
+              / (eager_s * ticks),
+              drain_calls=calls["drain_tick"],
+              drain_launches=launches["drain_tick"],
+              link_demand_launches=launches["link_demand"],
+              router_rate_drain_launches=launches["router_rate_drain"],
+              counted_while_capturing=counted["launches"],
               dropped=rep["dropped"],
               peak_device_mib=peak_mib, delivered=delivered,
-              sampled_ticks=sampled, identical_reruns=True,
+              sampled_ticks=sampled, graph_equals_eager=True,
               card_vs_cpu=against_cpu, profile=prof))
-    return dict(drain_tick=launches, link_demand=demand_launches,
-                router_rate_drain=router_launches,
+    return dict(drain_tick=launches["drain_tick"],
+                link_demand=launches["link_demand"],
+                router_rate_drain=launches["router_rate_drain"],
                 router_live=dict(
                     tick=sampled[0]["tick"], active=sampled[0]["active"],
                     ms=sampled[0]["live_ms"]["router_rate_drain"]),
                 link_demand_max_abs_err=max(
                     s["route_parity"]["demand_max_abs_err"]
                     for s in sampled)), delivered
+
+
+def timed_run(eng, state):
+    """One ``run`` with the peak memory counted from 0: (final state, wall
+    s, RunStats, peak device MiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = eng.run(state)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, eng.last_run,
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def phase_members(dev, cfg=PAPER_1D):
+    """Members of one batch at the 1D paper scale. Four members: seeds 0-3,
+    each with its own placement (``resolve(sc, seed=s)``: jobs and UR) and
+    ``engine_seed(s)``; member 2 with a rank slowdown of 1.5 on a tenth of
+    CosmoFlow's ranks; member 3 with entry 0 of the ``links2pct`` timeline
+    (2 % of the fabric links dead, cell seed 3). Each member of the B = 4
+    graph run has the digests (and float sums within rtol 1e-5) of its
+    own B = 1 graph run. Then member-virtual-ms per wall s, device ms a
+    tick (CUDA events around the replays) and peak device memory at B =
+    1 (seed 0), 4 (the four members; and seeds 0-3, healthy) and 8 (seeds
+    0-7, healthy), each on an engine of its own: the first run captures
+    (its peak memory is the row's), the second, timed, replays the cached
+    graph."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.netsim import engine as ENG
+    from repro_torch.netsim.faults import FailureSpec, FaultEvent
+    from repro_torch.union import manager as MGR
+    from repro_torch.union.seeds import engine_seed
+
+    t0 = time.perf_counter()
+
+    def member(rs, eng, s, **kw):
+        other = MGR.resolve(rs.scenario, seed=s)
+        placements = [j.rank2node for j in other.jobs] + [other.ur.rank2node]
+        return eng.init_state(seed=engine_seed(s), placements=placements,
+                              **kw)
+
+    def four(rs, eng):
+        P0 = rs.jobs[0].skeleton.n_ranks
+        slow = np.ones(P0, np.float32)
+        slow[: P0 // 10] = 1.5
+        mask = FailureSpec(name="links2pct", events=[FaultEvent(
+            t_us=0.0, kind="random_links", fraction=0.02)]).timeline(
+                rs.topo, 3)[0][1]
+        extra = dict(slowed=int((slow > 1).sum()),
+                     dead_links=int((mask.link_bw_factor == 0).sum()))
+        return [member(rs, eng, 0), member(rs, eng, 1),
+                member(rs, eng, 2, rank_slowdown_override=[slow]
+                       + [None] * (len(rs.jobs) - 1)),
+                member(rs, eng, 3, faults=mask)], extra
+
+    rows, extra = {}, {}
+    # the four members, then healthy batches of seeds 0..B-1 (at B = 4
+    # too: the dead links of member 3 stall messages, so its batch takes
+    # more ticks to the horizon)
+    for label, B in (("4", 4), ("1", 1), ("4_healthy", 4), ("8", 8)):
+        rs, eng, _ = paper_engine(cfg, dev)
+        if label == "4":
+            ms, extra = four(rs, eng)
+        else:
+            ms = [member(rs, eng, s) for s in range(B)]
+        state = ms[0] if B == 1 else ENG.stack_members(ms)
+        out, _, first, peak = timed_run(eng, state)  # captures
+        if label == "4":
+            for i, m in enumerate(ms):
+                same_run(ENG.member_state(out, i), eng.run(m),
+                         f"paper_1d_members: member {i} of the batch vs "
+                         "its own run")
+        _, wall, stats, _ = timed_run(eng, state)
+        need(not stats.captured, "paper_1d_members: the timed run captured")
+        rows[label] = dict(
+            wall_s=wall, ticks=stats.ticks,
+            member_virtual_ms_per_wall_s=B * cfg["horizon_ms"] / wall,
+            device_ms_per_tick=stats.replay_device_ms / stats.ticks,
+            capture_s=first.capture_s, instantiate_s=first.instantiate_s,
+            peak_device_mib=peak,
+            launches={k: v for k, v in replayed_counts(
+                dataclasses.asdict(stats))[0].items() if v})
+        del rs, eng, ms, state, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(dict(phase="paper_1d_members", seconds=time.perf_counter() - t0,
+              workload=cfg["workload"], horizon_ms=cfg["horizon_ms"],
+              members_equal_their_own_runs=4,
+              dead_links_member_3=extra["dead_links"],
+              slowed_ranks_member_2=extra["slowed"], by_batch=rows))
+
+
+def phase_observed(dev, cfg=dict(PAPER_1D, horizon_ms=2.0)):
+    """The 1D paper run with ``HistConfig()`` and ``ProbeConfig()``
+    compiled in, to 2 ms, through the graph: its unobserved leaves have
+    the plain engine's digests; its histogram counts per app sum to
+    ``lat_cnt``; its probe counter is its live ticks over ``every`` and
+    the ring holds the last ``min(idx, samples)`` samples. Device ms a
+    tick with and without the observers (CUDA events, cached graphs, in
+    turns: plain, observed, observed, plain)."""
+    import numpy as np
+
+    from repro_torch.obs import HistConfig, ProbeConfig, ring_order
+    from repro_torch.union.seeds import engine_seed
+
+    t0 = time.perf_counter()
+    pc, hc = ProbeConfig(), HistConfig()
+    rs, plain, _ = paper_engine(cfg, dev)
+    _, observed, _ = paper_engine(cfg, dev, probes=pc, hist=hc)
+    engines = dict(plain=plain, observed=observed)
+    final, times = {}, dict(plain=[], observed=[])
+    for what, eng in engines.items():  # the captures
+        final[what] = eng.run(eng.init_state(seed=engine_seed(0)))
+    for what in ("plain", "observed", "observed", "plain"):  # in turns
+        eng = engines[what]
+        _, wall, stats, _ = timed_run(eng, eng.init_state(seed=engine_seed(0)))
+        times[what].append(dict(wall_s=wall, ticks=stats.ticks,
+                                device_ms_per_tick=stats.replay_device_ms
+                                / stats.ticks))
+    st, plain_st = final["observed"], final["plain"]
+    same_run(st, plain_st, "paper_1d_observed: observed vs plain leaves")
+    counts = st.hist.counts.cpu().numpy()
+    lat_cnt = st.metrics.lat_cnt.cpu().numpy()
+    need((counts.sum(axis=(1, 2)) == lat_cnt).all(),
+         "paper_1d_observed: histogram counts do not sum to lat_cnt")
+    idx, live_ticks = int(st.probes.idx), int(st.probes.tick)
+    need(idx == live_ticks // pc.every and idx > 0,
+         f"paper_1d_observed: {idx} samples for {live_ticks} live ticks")
+    ts = st.probes.t.cpu().numpy()
+    held = ts[ring_order(idx, pc.samples)]
+    need(len(held) == min(idx, pc.samples) and (held >= 0).all()
+         and (np.diff(held) > 0).all(),
+         "paper_1d_observed: the ring does not hold the last samples in "
+         "order")
+    need(idx >= pc.samples or (ts[idx:] == -1.0).all(),
+         "paper_1d_observed: the ring holds samples it never took")
+    emit(dict(phase="paper_1d_observed", seconds=time.perf_counter() - t0,
+              horizon_ms=cfg["horizon_ms"], probes=vars(pc), hist=vars(hc),
+              samples=idx, live_ticks=live_ticks,
+              delivered=int(lat_cnt.sum()),
+              levels_crossed=int((counts.sum(axis=(0, 2)) > 0).sum()),
+              plain=times["plain"], observed=times["observed"],
+              observer_device_ms_per_tick=sum(
+                  r["device_ms_per_tick"] for r in times["observed"]) / 2
+              - sum(r["device_ms_per_tick"] for r in times["plain"]) / 2))
 
 
 # ---------------------------------------------------------------------------
@@ -1245,6 +1512,8 @@ def main() -> int:
     launches1, delivered1 = phase_paper("paper_1d", PAPER_1D, dev)
     for app in ("alexnet", "lammps", "nn", "ur"):
         need(delivered1.get(app, 0) > 0, f"paper_1d: {app} delivered nothing")
+    phase_members(dev)
+    phase_observed(dev)
     launches2, _ = phase_paper("paper_2d", PAPER_2D, dev)
     params, cfg, lm_launches = phase_lm_prefill(dev)
     phase_lm_serve(params, cfg, dev)

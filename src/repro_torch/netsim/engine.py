@@ -39,16 +39,22 @@ into one flat index.
   metrics nothing reads back.
 * The injection ``lax.cond`` is not needed: injection always runs, and
   for members with nothing to send it is a bit-exact no-op.
-* The ``lax.while_loop`` becomes a host loop that steps ``chunk`` ticks
+* The ``lax.while_loop`` becomes a loop that steps ``chunk`` ticks
   between liveness checks (one host sync per chunk). Ticks of a member
   that is no longer live are exact no-ops (``live_m`` freezes it), so the
-  chunk size does not change the result.
+  chunk size does not change the result. On the card the ticks of a
+  chunk are a captured CUDA graph, replayed (see ``run`` in
+  :func:`build_engine`); on the CPU they run eagerly.
+* The probes and histograms (:mod:`repro_torch.obs`) are compiled into
+  the tick only when the engine is built with them, as in the reference;
+  without them the tick and the state are unchanged.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional, Sequence
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,10 +64,19 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as KOPS
 from repro_torch.netsim.config import NetConfig
 from repro_torch.netsim.fabric import Fabric, routing_tables
-from repro_torch.netsim.faults import FaultState, healthy_state
+from repro_torch.netsim.faults import FaultState
+from repro_torch.obs.hist import HistConfig, HistState, init_hist, update_hist
+from repro_torch.obs.probes import (
+    ProbeConfig, ProbeState, init_probes, sample_probes)
 
 MAXE = 8  # max emissions per rank per (op, round)
 MASK32 = 0xFFFFFFFF
+# ticks one captured CUDA graph holds at most (``run`` on the card); a
+# chunk of ``chunk`` ticks replays a graph of gcd(chunk, GRAPH_TICKS)
+# ticks chunk / gcd times. 8: on an H100 a graph of 8 ticks of the 1D
+# paper scenario captures and instantiates in about 0.2-0.4 s, one of 64
+# in about 3 s, and both replay at one rate (tools/graph_ticks_sweep.py)
+GRAPH_TICKS = 8
 
 
 class JobTable(NamedTuple):
@@ -136,10 +151,16 @@ class SimState(NamedTuple):
     rng: torch.Tensor  # int64 holding the uint32 counter
     jobs: JobTable
     ur_nodes: Optional[torch.Tensor]  # (Pu,) int32 (None when no UR source)
-    # observation leaves of the JAX engine; not ported, always None
-    probes: None = None
-    hist: None = None
-    # runtime fault mask, always populated by ``init_state``
+    # sim-plane probe rings (repro_torch.obs.probes): None unless the
+    # engine was built with a ProbeConfig, so the unprobed state layout
+    # is unchanged
+    probes: Optional[ProbeState] = None
+    # per-(app, link-level) latency histograms (repro_torch.obs.hist):
+    # None unless built with a HistConfig
+    hist: Optional[HistState] = None
+    # runtime fault mask (repro_torch.netsim.faults), always populated by
+    # ``init_state``: healthy factors are exact 1.0 multiplies and +0.0
+    # demand adds
     faults: Optional[FaultState] = None
 
 
@@ -185,15 +206,44 @@ class EngineCapacity:
 
 
 @dataclass
+class RunStats:
+    """What one ``run`` call did (``Engine.last_run``).
+
+    ``ticks`` counts every tick stepped, a finished member's no-op ticks
+    included. On the card each chunk replays a captured graph of
+    ``graph_ticks`` ticks; ``graph_calls`` and ``graph_launches`` are the
+    kernel wrappers' counts (``repro_torch.kernels.ops``) taken while that
+    graph was captured, so the launches of the run are ``replays`` times
+    them. ``replay_device_ms`` is CUDA-event time around the replays.
+    """
+
+    device: str
+    ticks: int = 0
+    liveness_reads: int = 0
+    graph_ticks: int = 0
+    replays: int = 0
+    captured: bool = False
+    capture_s: float = 0.0
+    instantiate_s: float = 0.0
+    graph_calls: Dict[str, int] = field(default_factory=dict)
+    graph_launches: Dict[str, int] = field(default_factory=dict)
+    replay_device_ms: float = 0.0
+
+
+@dataclass
 class Engine:
     """The engine bundle for one capacity envelope.
 
-    Unpacks like the historical ``(init_state, run, tick)`` triple.
+    Unpacks like the historical ``(init_state, run, tick)`` triple;
+    ``capacity`` is the envelope, ``last_run`` the :class:`RunStats` of
+    the latest ``run`` call.
     """
 
     init_state: Callable
     run: Callable
     tick: Callable
+    capacity: EngineCapacity
+    last_run: Optional[RunStats] = None
 
     def __iter__(self):
         return iter((self.init_state, self.run, self.tick))
@@ -207,10 +257,19 @@ def pack_jobs(
     jobs: Sequence[JobSpec],
     cap: EngineCapacity,
     *,
+    placements: Optional[Sequence[np.ndarray]] = None,
+    start_us: Optional[Sequence[float]] = None,
+    rank_slowdown: Optional[Sequence[Optional[np.ndarray]]] = None,
     device,
 ) -> JobTable:
     """Stack a job list into the padded (Jmax, Pmax/OPmax) runtime tables
-    on ``device``."""
+    on ``device``.
+
+    ``placements`` replaces each job's ``rank2node``; ``start_us``
+    replaces each job's arrival offset (a member's actual schedule);
+    ``rank_slowdown`` gives each job's per-rank COMPUTE stretch (None for
+    a job: 1.0).
+    """
     J, Pmax, OPmax = cap.Jmax, cap.Pmax, cap.OPmax
     if len(jobs) > J:
         raise ValueError(f"{len(jobs)} jobs exceed engine capacity Jmax={J}")
@@ -231,8 +290,14 @@ def pack_jobs(
         ops[ji, : sk.n_ops] = sk.ops
         grid[ji, : sk.n_ops] = sk.grid
         P[ji] = sk.n_ranks
-        r2n[ji, : sk.n_ranks] = np.asarray(j.rank2node, np.int32)
-        start[ji] = float(j.start_us)
+        pl = placements[ji] if placements is not None else j.rank2node
+        r2n[ji, : sk.n_ranks] = np.asarray(pl, np.int32)
+        if rank_slowdown is not None and rank_slowdown[ji] is not None:
+            slow[ji, : sk.n_ranks] = np.asarray(rank_slowdown[ji], np.float32)
+        s = float(j.start_us)
+        if start_us is not None and start_us[ji] is not None:
+            s = float(start_us[ji])
+        start[ji] = s
     logp = np.asarray([_ceil_log2(int(p)) for p in P], np.int32)
 
     def dev(x):
@@ -251,13 +316,24 @@ def _hash(x):
     return x ^ (x >> 16)
 
 
-def _tree_map(fn, tree):
-    """Map ``fn`` over the tensor leaves of nested NamedTuples (None stays)."""
+def _tree_map(fn, tree, *rest):
+    """Map ``fn`` over the tensor leaves of nested NamedTuples (None stays);
+    ``rest`` are trees of the same structure whose leaves ``fn`` also
+    takes."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_tree_map(fn, x) for x in tree])
-    return fn(tree)
+        return type(tree)(*[_tree_map(fn, *xs) for xs in zip(tree, *rest)])
+    return fn(tree, *rest)
+
+
+def _leaves(tree):
+    """The tensor leaves of nested NamedTuples, in field order."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for sub in tree for x in _leaves(sub)]
+    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +356,12 @@ def _global_idx(target, idx):
 
 def _flat_scatter(target, idx, vals, valid, accumulate):
     gidx, n = _global_idx(target, idx)
-    vals = torch.as_tensor(vals, dtype=target.dtype, device=target.device)
-    vals = torch.broadcast_to(vals, idx.shape).reshape(-1)
+    if isinstance(vals, torch.Tensor):
+        vals = torch.broadcast_to(vals.to(target.dtype), idx.shape)
+    else:  # a Python scalar: filled on the device (no host copy to capture)
+        vals = torch.full(idx.shape, vals, dtype=target.dtype,
+                          device=target.device)
+    vals = vals.reshape(-1)
     flat = target.reshape(-1)
     if valid is None:
         flat = flat.clone()
@@ -310,6 +390,30 @@ def _flat_reduce(target, idx, vals, how):
         0, gidx.reshape(-1), vals.reshape(-1), how).reshape(target.shape)
 
 
+@dataclass
+class _TickGraph:
+    """A captured graph of ``ticks`` ticks over the static buffers
+    ``static``, with its liveness flag and what its capture counted."""
+
+    graph: "torch.cuda.CUDAGraph"
+    static: SimState
+    flag: torch.Tensor
+    ticks: int
+    calls: Dict[str, int]
+    launches: Dict[str, int]
+    capture_s: float
+    instantiate_s: float
+
+
+def member_live(state: SimState, horizon_us: float) -> torch.Tensor:
+    """Whether a member, or each member of a batch, is live: before
+    ``horizon_us`` with a rank not done or a message in flight. ``run``
+    ticks while any member is live; a tick leaves a member that is not
+    live as it is."""
+    done = state.vms.done.flatten(-2).all(-1) & ~state.pool.active.any(-1)
+    return (state.t < horizon_us) & ~done
+
+
 def _member_batched(fn):
     """Promote a member state (scalar t) to a B=1 batch around ``fn``."""
 
@@ -333,25 +437,31 @@ def build_engine(
     horizon_us: float = 500_000.0,
     capacity: Optional[EngineCapacity] = None,
     device=None,
-    probes=None,
-    hist=None,
+    probes: Optional[ProbeConfig] = None,
+    hist: Optional[HistConfig] = None,
 ) -> Engine:
     """Returns an :class:`Engine` — unpacks as ``(init_state, run, tick)``;
     ``run``: state -> final state.
 
-    ``jobs`` is the job set; ``capacity`` (default: what ``jobs`` need)
-    may widen the padded envelope, as a scenario's ``reserve`` does. ``run``
-    and ``tick``
-    accept a member state or a stacked batch of members (leading ``B``
-    dim).
+    ``jobs`` is the default job set; ``capacity`` (default: what ``jobs``
+    need) may widen the padded envelope, as a scenario's ``reserve`` does,
+    and ``init_state(jobs_override=...)`` swaps in any job set that fits
+    it. ``run`` and ``tick`` accept a member state or a stacked batch of
+    members (leading ``B`` dim; :func:`stack_members`).
+
+    Faults, rank slowdowns and arrival offsets are per-member runtime
+    data: ``init_state(faults=..., rank_slowdown_override=...,
+    start_us=...)``.
+
+    ``probes`` (a :class:`repro_torch.obs.ProbeConfig`) and ``hist`` (a
+    :class:`repro_torch.obs.HistConfig`) compile the sim-plane observers
+    into the tick; without them the tick holds no observer code.
 
     ``device`` defaults to CUDA and raises when there is none (see
-    :func:`resolve_device`). Probes and histograms are not ported yet:
-    asking for either raises ``NotImplementedError``.
+    :func:`resolve_device`). On CUDA, ``run`` replays captured CUDA
+    graphs of the tick, kept per state shape (so per batch size) for the
+    engine's life; a capture that fails raises.
     """
-    if probes is not None or hist is not None:
-        raise NotImplementedError(
-            "repro_torch's engine has no probes or histograms yet")
     dev = resolve_device(device)
     net = net or NetConfig()
     T, route_fn = routing_tables(topo, dev)
@@ -379,6 +489,31 @@ def build_engine(
     link_dstr_l = torch.as_tensor(
         np.asarray(topo.link_dst_router, np.int64), device=dev)
     bw_base = torch.as_tensor(np.asarray(topo.link_bw, np.float32), device=dev)
+
+    # probe constants: link -> level one-hot and each level's aggregate
+    # healthy capacity (denominators stay healthy capacity under runtime
+    # faults, so a failure shows as a per-level utilization shift)
+    if probes is not None:
+        _lm = np.stack(
+            [np.asarray(m, np.float32) for m in topo.link_levels().values()],
+            axis=1,
+        )  # (L, n_levels)
+        probe_level_mask = torch.as_tensor(_lm, device=dev)
+        probe_level_bw = torch.as_tensor(
+            (np.asarray(topo.link_bw, np.float32)[:, None]
+             * _lm).sum(axis=0),
+            device=dev)  # (n_levels,), float32 sums as the reference's
+        probe_n_levels = _lm.shape[1]
+
+    # histogram constants: link -> fabric-level index (a message's level
+    # is the max level of its route links; a dummy 0 row at index L)
+    if hist is not None:
+        _hl = np.zeros((L + 1,), np.int32)
+        _levels = topo.link_levels()
+        for _li, _mask in enumerate(_levels.values()):
+            _hl[:L][np.asarray(_mask, bool)] = _li
+        hist_link_level = torch.as_tensor(_hl, device=dev)
+        hist_n_levels = max(len(_levels), 1)
 
     # static candidate-index patterns for the stacked injection pass:
     # candidates are job-major, rank-major, emission-minor.
@@ -613,11 +748,8 @@ def build_engine(
             ),
         )
 
-    def all_done(s: SimState):
-        return s.vms.done.flatten(1).all(1) & ~s.pool.active.any(1)
-
     def live(s: SimState):
-        return (s.t < horizon_us) & ~all_done(s)
+        return member_live(s, horizon_us)
 
     def tick_batched(state: SimState) -> SimState:
         jt = state.jobs
@@ -744,6 +876,17 @@ def build_engine(
         lat_max = _flat_reduce(
             metrics.lat_max, app_of, torch.where(delivered, lat, -inf_f), "amax")
 
+        # (app, link-level) histograms, compiled in only when configured
+        # (``delivered`` is already live_m-gated above)
+        hist_st = state.hist
+        if hist is not None:
+            msg_lvl = torch.where(
+                pool.routes >= 0,
+                hist_link_level[pool.routes.clamp(0, L).long()], 0,
+            ).amax(dim=-1)  # (B, M)
+            hist_st = update_hist(hist_st, hist, lat=lat, delivered=delivered,
+                                  app=app_of, level=msg_lvl)
+
         # --- 4. delivery notifications -> VMs (UR id J is dropped) ---
         notify = delivered & (pool.job < J)
         sd = _flat_add(
@@ -845,19 +988,55 @@ def build_engine(
         t_new = torch.where(idle, torch.maximum(t + dt, skip_to), t + dt)
         t_out = torch.where(live_m, t_new, t)
 
+        # --- 8. sim-plane probes (compiled in only when configured) ---
+        probes_st = state.probes
+        if probes is not None:
+            probes_st = sample_probes(
+                probes_st, probes,
+                t_new=t_out, live_m=live_m,
+                link_bytes=metrics.link_bytes,
+                pool_active=pool.active, pool_job=pool.job,
+                pool_inject_t=pool.inject_t, free_top=pool.free_top,
+                level_mask=probe_level_mask, level_bw=probe_level_bw,
+                n_apps=n_apps, pool_size=M,
+            )
+
         return SimState(
             t=t_out, vms=vms, ur=ur_state, pool=pool,
             metrics=metrics,
             rng=torch.where(live_m, (rng2 + 1) & MASK32, rng),
-            jobs=jt, ur_nodes=state.ur_nodes, faults=state.faults,
+            jobs=jt, ur_nodes=state.ur_nodes, probes=probes_st,
+            hist=hist_st, faults=state.faults,
         )
 
     # ------------------------------------------------------------------
-    def init_state(seed: int = 1) -> SimState:
-        """Build one member's initial state on the engine's device, with
-        the build-time jobs and placements; ``seed`` sets the engine RNG.
-        Faults start healthy."""
-        table = pack_jobs(jobs, cap, device=dev)
+    def init_state(
+        seed: int = 1,
+        placements: Optional[Sequence[np.ndarray]] = None,
+        start_us: Optional[Sequence[float]] = None,
+        jobs_override: Optional[Sequence[JobSpec]] = None,
+        rank_slowdown_override: Optional[Sequence[np.ndarray]] = None,
+        faults: Optional[FaultState] = None,
+    ) -> SimState:
+        """Build one member's initial state on the engine's device.
+
+        ``placements`` (the jobs' rank2node arrays, plus UR's as the final
+        entry when a UR source exists) overrides the build-time
+        placements; ``start_us`` overrides per-job arrival offsets;
+        ``seed`` sets the engine RNG; ``jobs_override`` swaps in another
+        job set that fits the capacity envelope;
+        ``rank_slowdown_override`` gives per-job rank slowdowns;
+        ``faults`` sets the member's runtime fault mask (default healthy).
+        Stack member states with
+        :func:`stack_members` and pass the batch to ``run``.
+        """
+        js = list(jobs_override) if jobs_override is not None else list(jobs)
+        table = pack_jobs(
+            js, cap,
+            placements=placements[: len(js)] if placements is not None else None,
+            start_us=start_us, rank_slowdown=rank_slowdown_override,
+            device=dev,
+        )
         P_np = table.P.cpu().numpy()
         ops_np = table.ops.cpu().numpy()
         ranks = np.arange(Pmax, dtype=np.int32)[None, :]
@@ -883,7 +1062,10 @@ def build_engine(
                 next_t=full((Pu,), float(ur.start_us), f32),
                 count=torch.zeros((Pu,), dtype=i32, device=dev),
             )
-            ur_nodes = torch.as_tensor(ur_r2n, device=dev)
+            ur_nodes = torch.as_tensor(
+                np.asarray(placements[len(js)], np.int32)
+                if placements is not None and len(placements) > len(js)
+                else ur_r2n, device=dev)
         pool = PoolState(
             active=torch.zeros((M,), dtype=torch.bool, device=dev),
             src_rank=torch.zeros((M,), dtype=i32, device=dev),
@@ -910,30 +1092,131 @@ def build_engine(
             win_idx=full((), 0, i32),
             peak_inject=full((), 0.0, f32),
         )
-        flt = FaultState(*[torch.as_tensor(x, device=dev)
-                            for x in healthy_state(topo)])
+        if faults is None:
+            faults = FaultState(np.ones((L,), np.float32),
+                                np.ones((R,), np.float32))
+        flt = FaultState(*[
+            torch.as_tensor(np.asarray(x.cpu() if isinstance(
+                x, torch.Tensor) else x, np.float32), device=dev)
+            for x in faults])
+        if tuple(flt.link_bw_factor.shape) != (L,) \
+                or tuple(flt.router_factor.shape) != (R,):
+            raise ValueError(
+                f"faults shapes {tuple(flt.link_bw_factor.shape)}/"
+                f"{tuple(flt.router_factor.shape)} do not match fabric "
+                f"(L={L}, R={R})")
         return SimState(
             t=full((), 0.0, f32), vms=vms, ur=ur_state, pool=pool,
             metrics=metrics, rng=full((), int(seed) & MASK32, i64),
-            jobs=table, ur_nodes=ur_nodes, faults=flt,
+            jobs=table, ur_nodes=ur_nodes,
+            probes=(init_probes(probes, probe_n_levels, n_apps, device=dev)
+                    if probes is not None else None),
+            hist=(init_hist(hist, n_apps, hist_n_levels, device=dev)
+                  if hist is not None else None),
+            faults=flt,
         )
+
+    # ------------------------------------------------------------------
+    # run: tick until no member is live, reading liveness once a chunk
+    # ------------------------------------------------------------------
+    graphs: Dict[tuple, _TickGraph] = {}
+
+    def capture(state: SimState, n: int) -> _TickGraph:
+        """Capture ``n`` ticks of a state of this shape as a CUDA graph
+        over static buffers (a copy of ``state``): the ticks, then the last
+        tick's state copied back into the buffers and ``live(...).any()``
+        into a one-element flag. A failure to capture raises."""
+        static = _tree_map(torch.clone, state)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        # one eager tick first, its result dropped: it builds the kernels
+        # and sets up the libraries the tick calls, which must not happen
+        # while a graph is captured
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            tick_batched(static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        calls0, launches0 = dict(KOPS.CALLS), dict(KOPS.LAUNCHES)
+        with torch.cuda.graph(graph):
+            t0 = time.perf_counter()
+            s = static
+            for _ in range(n):
+                s = tick_batched(s)
+            for dst, src in zip(_leaves(static), _leaves(s)):
+                if dst is not src:
+                    dst.copy_(src)
+            flag.copy_(live(s).any())
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+        return _TickGraph(
+            graph=graph, static=static, flag=flag, ticks=n,
+            calls={k: KOPS.CALLS[k] - calls0[k] for k in calls0},
+            launches={k: KOPS.LAUNCHES[k] - launches0[k] for k in launches0},
+            capture_s=t1 - t0, instantiate_s=t2 - t1)
+
+    def run_graphs(state: SimState, chunk: int, stats: RunStats) -> SimState:
+        n = math.gcd(chunk, GRAPH_TICKS)
+        key = (n,) + tuple(tuple(x.shape) for x in _leaves(state))
+        tg = graphs.get(key)
+        if tg is None:
+            tg = capture(state, n)
+            graphs[key] = tg
+            stats.captured = True
+        stats.graph_ticks = n
+        stats.capture_s, stats.instantiate_s = tg.capture_s, tg.instantiate_s
+        stats.graph_calls, stats.graph_launches = tg.calls, tg.launches
+        for dst, src in zip(_leaves(tg.static), _leaves(state)):
+            dst.copy_(src)
+        stats.liveness_reads += 1
+        if bool(live(tg.static).any()):
+            events = []
+            while True:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(chunk // n):
+                    tg.graph.replay()
+                b.record()
+                events.append((a, b))
+                stats.replays += chunk // n
+                stats.liveness_reads += 1
+                if not bool(tg.flag):
+                    break
+            stats.replay_device_ms = sum(a.elapsed_time(b) for a, b in events)
+        stats.ticks = stats.replays * n
+        # a copy: the next run overwrites the static buffers
+        return _tree_map(torch.clone, tg.static)
 
     def run_batched(state: SimState, chunk: int = 64) -> SimState:
         """Tick until no member is live. Liveness is read on the host once
         per ``chunk`` ticks; the extra ticks of a finished member are
-        exact no-ops, so ``chunk`` does not change the result."""
+        exact no-ops, so ``chunk`` does not change the result. On the card
+        the ticks are replays of a captured graph; on the CPU, eager."""
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
-        while bool(live(state).any()):
-            for _ in range(chunk):
-                state = tick_batched(state)
+        stats = RunStats(device=dev.type)
+        if dev.type == "cuda":
+            state = run_graphs(state, chunk, stats)
+        else:
+            while True:
+                stats.liveness_reads += 1
+                if not bool(live(state).any()):
+                    break
+                for _ in range(chunk):
+                    state = tick_batched(state)
+                stats.ticks += chunk
+        engine.last_run = stats
         return state
 
-    return Engine(
+    engine = Engine(
         init_state=init_state,
         run=_member_batched(run_batched),
         tick=_member_batched(tick_batched),
+        capacity=cap,
     )
+    return engine
 
 
 # ---------------------------------------------------------------------------
@@ -951,7 +1234,16 @@ def job_vm(state: SimState, ji: int) -> VMState:
     return VMState(*[_host(x[ji])[:P] for x in state.vms])
 
 
+def job_done(state: SimState, ji: int) -> bool:
+    return bool(job_vm(state, ji).done.all())
+
+
 def member_state(batched_state: SimState, i: int) -> SimState:
     """Unstack member ``i`` of a batched state."""
     return _tree_map(lambda x: x[i], batched_state)
+
+
+def stack_members(states: Sequence[SimState]) -> SimState:
+    """Stack member states into one batch (leading member dim)."""
+    return _tree_map(lambda *xs: torch.stack(xs), *states)
 

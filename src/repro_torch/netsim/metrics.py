@@ -10,6 +10,7 @@ import numpy as np
 from repro_torch.netsim.config import NetConfig
 from repro_torch.netsim.fabric import Fabric
 from repro_torch.netsim.fabric.base import KIND_TERM_IN, KIND_TERM_OUT
+from repro_torch.obs.hist import hist_summary
 
 
 def latency_summary(state, app_names: Sequence[str], net: NetConfig) -> Dict[str, Any]:
@@ -168,4 +169,9 @@ def run_report(state, app_names, topo, net, sim_wall_s: float = 0.0,
         link_utilization=link_level_utilization(state, topo),
         sim_wall_s=sim_wall_s,
     )
+    # the (app, link-level) latency histograms ride along when the state
+    # came from a histogrammed engine (repro_torch.obs.hist)
+    if getattr(state, "hist", None) is not None:
+        rep["latency_hist"] = hist_summary(
+            state.hist, app_names, list(topo.link_levels()))
     return rep

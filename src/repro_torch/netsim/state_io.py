@@ -4,9 +4,10 @@ The simulator's counterpart of loading carried weights. A state of the
 JAX package's engine, handed over as nested NamedTuples (or dicts) of
 numpy arrays — ``jax.tree_util.tree_map(np.asarray, state)`` makes one —
 becomes a :class:`~repro_torch.netsim.engine.SimState` on a device, with
-its job tables and fault leaves; :func:`state_to_numpy` goes the other
-way. With these, both engines can start from one state and be compared
-tick by tick. Leaves are matched by field name.
+its job tables, fault leaves and, when present, its probe rings and
+histograms; :func:`state_to_numpy` goes the other way. With these, both
+engines can start from one state and be compared tick by tick. Leaves
+are matched by field name.
 
 The rng counter is a uint32 in the JAX package and an int64 tensor
 holding the same value in the port.
@@ -22,10 +23,13 @@ from repro_torch.netsim.engine import (
     JobTable, Metrics, PoolState, SimState, URState, VMState,
 )
 from repro_torch.netsim.faults import FaultState
+from repro_torch.obs.hist import HistState
+from repro_torch.obs.probes import ProbeState
 
 _NODES = {
     "vms": VMState, "ur": URState, "pool": PoolState, "metrics": Metrics,
-    "jobs": JobTable, "faults": FaultState,
+    "jobs": JobTable, "faults": FaultState, "probes": ProbeState,
+    "hist": HistState,
 }
 
 
@@ -45,14 +49,8 @@ def _to_tensor(x, device) -> torch.Tensor:
 def state_from_numpy(tree: Any, device) -> SimState:
     """A port state on ``device`` from a numpy tree of an engine state
     (member or batched)."""
-    for name in ("probes", "hist"):
-        if _field(tree, name) is not None:
-            raise NotImplementedError(
-                f"state carries {name!r}, which the port does not have yet")
     out = {}
     for name in SimState._fields:
-        if name in ("probes", "hist"):
-            continue
         node = _field(tree, name)
         if node is None:
             out[name] = None

@@ -12,6 +12,7 @@ CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -32,6 +33,7 @@ from repro_torch.netsim.engine import (
 from repro_torch.netsim.placement import place_jobs
 from repro_torch.netsim.state_io import state_to_numpy
 from repro_torch.netsim.topology import Fabric, get_topology
+from repro_torch.obs.probes import probe_timelines
 from repro_torch.union.scenario import Scenario, ScenarioJob, UR_RANKS
 from repro_torch.union.seeds import engine_seed
 
@@ -130,18 +132,23 @@ def resolve(scenario: Scenario, seed: int = 0) -> ResolvedScenario:
     )
 
 
-def build(rs: ResolvedScenario, device=None) -> Engine:
+def build(rs: ResolvedScenario, device=None, probes=None,
+          hist=None) -> Engine:
     """The engine for a resolved scenario on ``device`` (CUDA by default):
     an :class:`~repro_torch.netsim.engine.Engine` that unpacks as
     ``init, run, tick``, built with this scenario's jobs, UR placement and
     capacity envelope (``reserve`` included). There is no engine cache, so
     the JAX package's job-free engine and its ``bind_jobs`` wrapper have
     nothing to do here.
+
+    ``probes`` (a :class:`repro_torch.obs.ProbeConfig`) and ``hist`` (a
+    :class:`repro_torch.obs.HistConfig`) compile the probe rings and the
+    full-fidelity latency histograms into the engine's tick.
     """
     return build_engine(
         rs.topo, rs.jobs, routing=rs.scenario.routing, ur=rs.ur, net=rs.net,
         pool_size=rs.pool_size, horizon_us=rs.horizon_us,
-        capacity=rs.capacity, device=device,
+        capacity=rs.capacity, device=device, probes=probes, hist=hist,
     )
 
 
@@ -163,6 +170,9 @@ def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,
         ],
         envelope=dict(Jmax=cap.Jmax, Pmax=cap.Pmax, OPmax=cap.OPmax),
     )
+    if state.probes is not None:
+        rep["probes"] = probe_timelines(
+            state.probes, list(rs.topo.link_levels()), names)
     return rep
 
 
@@ -173,6 +183,9 @@ def run_scenario(scenario: Scenario, seed: int = 0, strict: bool = False,
 
     ``seed`` drives both the placement draw and the engine RNG
     (``engine_seed(seed)``), as the JAX package's ``run_scenario`` does.
+    The report's ``engine_run`` says how the engine ran
+    (:class:`~repro_torch.netsim.engine.RunStats`: ticks, liveness reads,
+    graph replays and capture times on the card).
     """
     rs = resolve(scenario, seed=seed)
     eng = build(rs, device=device)
@@ -180,4 +193,6 @@ def run_scenario(scenario: Scenario, seed: int = 0, strict: bool = False,
     t0 = time.perf_counter()
     state = eng.run(state)  # returns after a host read of the last state
     wall = time.perf_counter() - t0
-    return member_report(state, rs, wall, seed=seed, strict=strict)
+    rep = member_report(state, rs, wall, seed=seed, strict=strict)
+    rep["engine_run"] = dataclasses.asdict(eng.last_run)
+    return rep
