@@ -71,8 +71,20 @@ its seconds, and any failure raises (non-zero exit, no result line):
    ``paper_1d_observed``: the 1D run to 2 ms with the histograms and
    probes compiled in: its plain leaves have the plain run's digests,
    its histogram and probe counts are consistent; the observers' device
-   ms a tick; then the paper-scale 2D dragonfly (workload3) as in 7,
-   shorter;
+   ms a tick;
+   ``paper_1d_trace``: the online scheduler on the 1D paper system, a
+   16-job Poisson trace of the paper's Table III applications at their
+   paper rank counts (4 slots, horizon 20 ms), each window replays of a
+   captured graph: ``run_trace`` under FCFS and EASY, ``run_trace_batch``
+   over FCFS, EASY and EASY with 2 % of the links down from 5 to 12 ms,
+   and that cell alone; batched cells equal their own runs (records and
+   final-state digests), the first 3 windows of the EASY cell equal eager
+   ticks under the stop rule, the drain tick's and link demand's launches
+   equal the ticks replayed (and a profile of the first window's replays
+   finds each of their 8 kernels once a tick), at least 4 jobs complete
+   and a slot is recycled; windows, jobs, no-op ticks, replay device ms a
+   tick, host ms a window, capture seconds and peak memory of each run;
+   then the paper-scale 2D dragonfly (workload3) as in 7, shorter;
 9. Mamba-2 370M at full width (48 layers, seeded random weights, float32
    weights, bfloat16 compute) through ``make_prefill_step`` on 8 requests
    x 4,096 tokens, counted like the simulator: prefill tokens per second,
@@ -83,8 +95,8 @@ its seconds, and any failure raises (non-zero exit, no result line):
    tokens): served tokens, decode tokens per second; a profile of one
    decode step;
 11. the kernel summary line (each kernel's launches as read in the counted
-   windows, its largest error against its plain version), then the result
-   line.
+   windows, the simulator kernels' also on the trace's windows, its
+   largest error against its plain version), then the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``); the card
 tests' input generators come from ``tests/test_torch_*_cuda.py``, which
@@ -1108,7 +1120,9 @@ def phase_paper(name, cfg, dev):
     need(late is not None, f"{name}: no state at tick {ticks - CHUNK}")
 
     # the graph run from the same seed on this engine (it captures its
-    # graph here): the eager loop's digests and float sums
+    # graph here: the one run_sim captured on the cached engine is
+    # dropped): the eager loop's digests and float sums
+    eng.drop_graphs()
     graph = eng.run(eng.init_state(seed=engine_seed(0)))
     same_run(graph, eager, f"{name}: graph run vs eager ticks")
     graph_stats = dataclasses.asdict(eng.last_run)
@@ -1266,6 +1280,7 @@ def phase_members(dev, cfg=PAPER_1D):
             peak_device_mib=peak,
             launches={k: v for k, v in replayed_counts(
                 dataclasses.asdict(stats))[0].items() if v})
+        eng.drop_graphs()  # the cached engine's: the next batch captures
         del rs, eng, ms, state, out
         gc.collect()
         torch.cuda.empty_cache()
@@ -1329,6 +1344,222 @@ def phase_observed(dev, cfg=dict(PAPER_1D, horizon_ms=2.0)):
               observer_device_ms_per_tick=sum(
                   r["device_ms_per_tick"] for r in times["observed"]) / 2
               - sum(r["device_ms_per_tick"] for r in times["plain"]) / 2))
+
+
+# ---------------------------------------------------------------------------
+# paper_1d_trace: the online scheduler on the paper's 1D system
+# ---------------------------------------------------------------------------
+
+# the trace's catalog: the paper's Table III applications at their paper
+# rank counts (``ranks=None``): app, runtime estimate µs, weight, iters
+TRACE_CATALOG = (("cosmoflow", 130_000.0, 0.5, 1), ("nn", 5_000.0, 2.0, 2),
+                 ("lammps", 5_000.0, 1.0, 2), ("nekbone", 3_000.0, 1.0, 2),
+                 ("milc", 4_000.0, 0.5, 1))
+TRACE_JOBS, TRACE_GAP_US, TRACE_HORIZON_MS, TRACE_SLOTS = 16, 1000.0, 20.0, 4
+TRACE_EAGER_WINDOWS = 3  # windows of the easy cell held to eager ticks
+
+
+def paper_trace(scale="paper"):
+    """16 Poisson arrivals (mean gap 1 ms, seed 0) of the catalog on the
+    1D dragonfly: tick 5 µs, ADP routing, RN placement, 4 slots, the
+    paper pool (65,536 messages), horizon 20 ms."""
+    from repro_torch.sched.trace import CatalogApp, synthetic_trace
+
+    cat = [CatalogApp(app=a, est_runtime_us=e, weight=w,
+                      overrides={"iters": it})
+           for a, e, w, it in TRACE_CATALOG]
+    return synthetic_trace(
+        TRACE_JOBS, arrival="poisson", mean_gap_us=TRACE_GAP_US, seed=0,
+        catalog=cat, topo="1d", scale=scale, placement="RN", routing="ADP",
+        tick_us=5.0, horizon_ms=TRACE_HORIZON_MS, slots=TRACE_SLOTS)
+
+
+def trace_outage():
+    """2 % of the fabric links down at 5 ms and back at 12 ms (seed 7)."""
+    from repro_torch.netsim.faults import FailureSpec, FaultEvent
+
+    return FailureSpec(name="outage", events=[
+        FaultEvent(t_us=5_000.0, kind="random_links", fraction=0.02, seed=7),
+        FaultEvent(t_us=12_000.0, kind="random_links", fraction=0.02,
+                   seed=7, factor=1.0)])
+
+
+def trace_row(res, wall_s, peak_mib):
+    """One scheduler run's line: its jobs, windows and engine totals
+    (``SchedResult.engine_windows``; a batch's are its cells')."""
+    from collections import Counter
+
+    recs = res.records
+    slots = Counter(r.slot for r in recs if r.slot >= 0)
+    ew = res.engine_windows
+    W = max(ew["windows"], 1)
+    return dict(
+        policy=res.policy, windows=res.windows, jobs=len(recs),
+        started=sum(slots.values()),
+        completed=sum(r.completed for r in recs),
+        slots_recycled=sum(n - 1 for n in slots.values()),
+        virtual_ms=float(res.final_state.t) / 1e3, wall_s=wall_s,
+        virtual_ms_per_wall_s=float(res.final_state.t) / 1e3 / wall_s,
+        jobs_per_s=res.jobs_per_sec,
+        batch_windows=ew["windows"], ticks=ew["ticks"],
+        live_ticks=ew["live_ticks"],
+        noop_tick_share=1.0 - ew["live_ticks"] / max(ew["ticks"], 1),
+        replays=ew["replays"], captures=ew["captures"],
+        capture_s=ew["capture_s"],
+        replay_device_ms_per_tick=ew["replay_device_ms"] / max(ew["ticks"],
+                                                               1),
+        # host time a window: the round between windows (view, policy,
+        # surgery) and the window call's time beyond its replays' device
+        # time (copy-in, flag reads, copy-out)
+        host_round_ms_per_window=1e3 * ew["host_round_s"] / W,
+        window_overhead_ms_per_window=(
+            1e3 * ew["window_wall_s"] - ew["replay_device_ms"]) / W,
+        peak_device_mib=peak_mib, launches=ew["launches"])
+
+
+def same_records(a, b, what):
+    """Two SchedResults of one cell: the same records (jid, slot, start,
+    finish, messages, completed, and the bits of avg_latency_us and
+    max_comm_ms), window counts and final-state digests."""
+    import numpy as np
+
+    def bits(x):
+        return np.float64(x).tobytes()
+
+    need(len(a.records) == len(b.records), f"{what}: record counts differ")
+    for x, y in zip(a.records, b.records):
+        need((x.jid, x.slot, x.msgs, x.completed)
+             == (y.jid, y.slot, y.msgs, y.completed)
+             and [bits(v) for v in (x.start_us, x.finish_us,
+                                    x.avg_latency_us, x.max_comm_ms)]
+             == [bits(v) for v in (y.start_us, y.finish_us,
+                                   y.avg_latency_us, y.max_comm_ms)],
+             f"{what}: job {x.jid}'s records differ")
+    need(a.windows == b.windows, f"{what}: window counts differ")
+    same_run(a.final_state, b.final_state, what)
+
+
+def phase_trace(dev):
+    """``paper_1d_trace``: a 16-job trace through the port's online
+    scheduler on the paper's 1D system, each window replays of a captured
+    graph. ``run_trace`` under FCFS and EASY on one engine, then
+    ``run_trace_batch`` over FCFS, EASY and EASY with a mid-run outage,
+    and the outage cell alone: every batched member equal to its own
+    sequential run (records and final-state digests). The first windows
+    of the EASY cell equal an eager loop of ``tick`` under the stop rule;
+    the drain tick's and link demand's launches equal the ticks replayed,
+    and a profile of the first window's replays finds each of their
+    kernels once a tick replayed.
+    The counts are set to 0 before the scheduler runs and read after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import engine as ENG
+    from repro_torch.sched import scheduler as S
+    from repro_torch.union.seeds import engine_seed
+    from test_torch_windows_cuda import eager_window
+
+    t0 = time.perf_counter()
+    tr = paper_trace()
+    engine = S.build_sched_engine(tr, device=dev)
+    eng = engine[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        res = out if isinstance(out, list) else [out]
+        return out, [trace_row(r, wall, peak) for r in res]
+
+    ops.reset_launches()
+    runs, rows = {}, {}
+    for pol in ("fcfs", "easy"):
+        runs[pol], (rows[pol],) = timed(lambda: S.run_trace(
+            tr, policy=pol, seed=0, engine=engine, collect_state=True))
+    batch, brows = timed(lambda: S.run_trace_batch(
+        [(tr, "fcfs", 0), (tr, "easy", 0), (tr, "easy", 0, trace_outage())],
+        engine=engine, collect_state=True))
+    runs["outage"], (rows["outage"],) = timed(lambda: S.run_trace(
+        tr, policy="easy", seed=0, engine=engine, collect_state=True,
+        failure=trace_outage()))
+    counted = dict(ops.LAUNCHES)
+    ticks = launches = 0
+    for r in [rows["fcfs"], rows["easy"], rows["outage"], brows[0]]:
+        ticks += r["ticks"]
+        launches += r["launches"].get("drain_tick", 0)
+        need(r["launches"].get("drain_tick") == r["ticks"]
+             and r["launches"].get("link_demand") == r["ticks"],
+             f"paper_1d_trace: launches {r['launches']} != {r['ticks']} "
+             "ticks replayed")
+    for i, key in enumerate(("fcfs", "easy", "outage")):
+        same_records(batch[i], runs[key], f"paper_1d_trace: batched {key} "
+                     "cell vs its own run")
+    for key in ("fcfs", "easy"):
+        need(rows[key]["completed"] >= 4 and rows[key]["slots_recycled"] >= 1,
+             f"paper_1d_trace: {key} completed {rows[key]['completed']} "
+             f"jobs, recycled {rows[key]['slots_recycled']} slots")
+    need(rows["outage"]["ticks"] > 0 and rows["easy"]["captures"] == 0,
+         "paper_1d_trace: the easy run captured again")
+
+    # the first windows of the EASY cell: graph replays against eager
+    # ticks under the stop rule, from the same surgery
+    _, topo, resolved, net = engine
+    cell = S._CellLoop(tr, "easy", tr.slots, 0, topo, resolved, net)
+    state = eng.init_state(seed=engine_seed(0))
+    eager = []
+    for w in range(TRACE_EAGER_WINDOWS):
+        retires, admits, t_stop = cell.step(ENG.window_host_view(state))
+        for slot in retires:
+            state = ENG.retire_job(state, slot, checked=False)
+        for slot, spec in admits:
+            state = ENG.admit_job(state, slot, spec, checked=False)
+        need(cell.active, "paper_1d_trace: the cell ended early")
+        if w == 0:
+            # on the device: the window's replays ran each simulator
+            # kernel once a tick replayed
+            got, wall_us, prof = device_profile(
+                lambda: eng.run_window(state, np.float32(t_stop)))
+            lw = eng.last_window
+            need(not lw.captured, "paper_1d_trace: the profiled window "
+                 "captured")
+            busy_us = sum(r[0] for r in prof)
+            window_prof = dict(
+                ticks=lw.ticks, live_ticks=lw.live_ticks,
+                replays=lw.replays, wall_ms=wall_us / 1e3,
+                device_ms_per_tick=busy_us / lw.ticks / 1e3,
+                device_busy_share=busy_us / wall_us,
+                wrappers=wrapper_kernels(
+                    prof, lw.ticks, "paper_1d_trace: window 0's replays"))
+        else:
+            got = eng.run_window(state, np.float32(t_stop))
+        e0 = time.perf_counter()
+        want, n = eager_window(eng, state, np.float32(t_stop),
+                               tr.horizon_ms * 1000.0)
+        same_run(got, want, f"paper_1d_trace: window {w}, graph vs eager")
+        need(eng.last_window.live_ticks == n,
+             f"paper_1d_trace: window {w}: {eng.last_window.live_ticks} "
+             f"live ticks, {n} eager")
+        eager.append(dict(t_stop_us=float(t_stop), ticks=n,
+                          replays=eng.last_window.replays,
+                          eager_s=time.perf_counter() - e0))
+        state = got
+        cell.windows += 1
+    emit(dict(phase="paper_1d_trace", seconds=time.perf_counter() - t0,
+              trace=dict(jobs=TRACE_JOBS, mean_gap_us=TRACE_GAP_US,
+                         horizon_ms=TRACE_HORIZON_MS, slots=TRACE_SLOTS,
+                         catalog=TRACE_CATALOG,
+                         arrivals=[(j.name, j.arrival_us) for j in tr.jobs]),
+              capacity=vars(eng.capacity), runs=rows, batch=brows,
+              batch_member_virtual_ms_per_wall_s=sum(
+                  r["virtual_ms"] for r in brows) / brows[0]["wall_s"],
+              batched_equal_sequential=3, eager_windows=eager,
+              window_profile=window_prof, counted_calls=counted))
+    return dict(drain_tick=launches, link_demand=launches, ticks=ticks)
 
 
 # ---------------------------------------------------------------------------
@@ -1474,6 +1705,19 @@ def phase_lm_serve(params, cfg, dev):
               first_request=outputs[0], decode_step_profile=prof))
 
 
+def free_engines() -> None:
+    """Drop the cached engines and their captured graphs."""
+    import gc
+
+    import torch
+
+    from repro_torch.netsim.engine import clear_engine_cache
+
+    clear_engine_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1508,13 +1752,22 @@ def main() -> int:
     dem_rows = phase_link_demand(dev)
     ssd = phase_ssd(dev)
     rtr = phase_router(dev)
+    # each engine phase ends by clearing the engine cache, so that the
+    # next one captures its own graphs with the device memory free
     phase_goldens(dev)
+    free_engines()
     launches1, delivered1 = phase_paper("paper_1d", PAPER_1D, dev)
+    free_engines()
     for app in ("alexnet", "lammps", "nn", "ur"):
         need(delivered1.get(app, 0) > 0, f"paper_1d: {app} delivered nothing")
     phase_members(dev)
+    free_engines()
     phase_observed(dev)
+    free_engines()
+    trace_launches = phase_trace(dev)
+    free_engines()
     launches2, _ = phase_paper("paper_2d", PAPER_2D, dev)
+    free_engines()
     params, cfg, lm_launches = phase_lm_prefill(dev)
     phase_lm_serve(params, cfg, dev)
 
@@ -1527,12 +1780,15 @@ def main() -> int:
              launches=launches1["drain_tick"], max_abs_err=max_err,
              ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
              bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             # the scheduler's windows on paper_1d_trace (its four runs)
+             trace_launches=trace_launches["drain_tick"]),
         dict(name="link_demand", route="cuda",
              source="src/repro_torch/kernels/csrc/link_demand.cu",
              replaces="src/repro/netsim/engine.py:805",
              tpu=None,  # the reference's jnp scatter-add, not a TPU kernel
              launches=launches1["link_demand"],
+             trace_launches=trace_launches["link_demand"],
              max_abs_err=max([r["max_abs_err"] for r in dem_rows]
                              + [launches1["link_demand_max_abs_err"]]),
              ms=dem["kernel_ms"], plain_ms=dem["plain_ms"],

@@ -48,13 +48,20 @@ into one flat index.
 * The probes and histograms (:mod:`repro_torch.obs`) are compiled into
   the tick only when the engine is built with them, as in the reference;
   without them the tick and the state are unchanged.
+* ``run_window`` (the online scheduler's engine call) ticks until every
+  member has reached its window event: its ``t_stop``, a job slot
+  completing, or the end of its run. The stop rule is monotone and a
+  stopped member's ticks are exact no-ops, so on the card the window
+  replays whole captured graphs of ``GRAPH_TICKS`` ticks and still gives
+  the reference's tick-exact ``lax.while_loop`` bits.
 """
 from __future__ import annotations
 
 import math
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +73,7 @@ from repro_torch.netsim.config import NetConfig
 from repro_torch.netsim.fabric import Fabric, routing_tables
 from repro_torch.netsim.faults import FaultState
 from repro_torch.obs.hist import HistConfig, HistState, init_hist, update_hist
+from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.probes import (
     ProbeConfig, ProbeState, init_probes, sample_probes)
 
@@ -207,18 +215,22 @@ class EngineCapacity:
 
 @dataclass
 class RunStats:
-    """What one ``run`` call did (``Engine.last_run``).
+    """What one ``run`` or ``run_window`` call did (``Engine.last_run``,
+    ``Engine.last_window``).
 
-    ``ticks`` counts every tick stepped, a finished member's no-op ticks
-    included. On the card each chunk replays a captured graph of
-    ``graph_ticks`` ticks; ``graph_calls`` and ``graph_launches`` are the
-    kernel wrappers' counts (``repro_torch.kernels.ops``) taken while that
-    graph was captured, so the launches of the run are ``replays`` times
-    them. ``replay_device_ms`` is CUDA-event time around the replays.
+    ``ticks`` counts every tick stepped, a stopped member's no-op ticks
+    included; ``live_ticks`` (windows only) the ticks in which some member
+    had not yet stopped, counted on the device outside the state. On the
+    card each chunk or window replays a captured graph of ``graph_ticks``
+    ticks; ``graph_calls`` and ``graph_launches`` are the kernel wrappers'
+    counts (``repro_torch.kernels.ops``) taken while that graph was
+    captured, so the launches of the call are ``replays`` times them.
+    ``replay_device_ms`` is CUDA-event time around the replays.
     """
 
     device: str
     ticks: int = 0
+    live_ticks: int = 0
     liveness_reads: int = 0
     graph_ticks: int = 0
     replays: int = 0
@@ -234,19 +246,60 @@ class RunStats:
 class Engine:
     """The engine bundle for one capacity envelope.
 
-    Unpacks like the historical ``(init_state, run, tick)`` triple;
-    ``capacity`` is the envelope, ``last_run`` the :class:`RunStats` of
-    the latest ``run`` call.
+    Unpacks like the historical ``(init_state, run, tick)`` triple.
+    ``run`` ticks until no member is live; ``run_window`` until every
+    member reaches its window event (the online scheduler's call);
+    ``capacity`` is the envelope; ``last_run`` and ``last_window`` are the
+    :class:`RunStats` of the latest calls on this object.
+
+    On the card the captured graphs live in ``graphs``, one per state
+    shape and kind of call, for the life of this object;
+    :meth:`drop_graphs` frees them. An engine bound to a scenario's jobs
+    (:func:`repro_torch.union.manager.bind_jobs`) shares the cached
+    engine's tables and ``graphs`` and keeps its own stats.
     """
 
     init_state: Callable
-    run: Callable
     tick: Callable
     capacity: EngineCapacity
+    device: torch.device
+    run_fn: Callable = field(repr=False)
+    window_fn: Callable = field(repr=False)
+    graphs: Dict[tuple, "_TickGraph"] = field(default_factory=dict,
+                                              repr=False)
     last_run: Optional[RunStats] = None
+    last_window: Optional[RunStats] = None
 
     def __iter__(self):
         return iter((self.init_state, self.run, self.tick))
+
+    def run(self, state: "SimState", chunk: int = 64) -> "SimState":
+        """Tick until no member is live. Liveness is read on the host once
+        per ``chunk`` ticks; the extra ticks of a finished member are
+        exact no-ops, so ``chunk`` does not change the result. On the card
+        the ticks are replays of a captured graph; on the CPU, eager."""
+        if chunk < 1:
+            raise ValueError("chunk must be >= 1")
+        stats = RunStats(device=self.device.type)
+        out = self.run_fn(state, chunk, self.graphs, stats)
+        self.last_run = stats
+        return out
+
+    def run_window(self, state: "SimState", t_stop) -> "SimState":
+        """One scheduling window: tick until every member has stopped,
+        a member stopping when virtual time reaches its ``t_stop`` (a
+        scalar, or one per member of a batch), when one more of its job
+        slots is done than when the window began, or when it is no longer
+        live. A stopped member stays frozen while its batch-mates tick."""
+        stats = RunStats(device=self.device.type)
+        out = self.window_fn(state, t_stop, self.graphs, stats)
+        self.last_window = stats
+        return out
+
+    def drop_graphs(self) -> None:
+        """Free the captured graphs and their static buffers (those of
+        every engine bound to this one too)."""
+        self.graphs.clear()
 
 
 def _ceil_log2(P: int) -> int:
@@ -393,7 +446,9 @@ def _flat_reduce(target, idx, vals, how):
 @dataclass
 class _TickGraph:
     """A captured graph of ``ticks`` ticks over the static buffers
-    ``static``, with its liveness flag and what its capture counted."""
+    ``static``, with its flag and what its capture counted. A window's
+    graph also holds its ``t_stop`` and ``n0`` buffers, written before
+    each window, and its flag is ``[any member not stopped, live ticks]``."""
 
     graph: "torch.cuda.CUDAGraph"
     static: SimState
@@ -403,6 +458,8 @@ class _TickGraph:
     launches: Dict[str, int]
     capture_s: float
     instantiate_s: float
+    t_stop: Optional[torch.Tensor] = None
+    n0: Optional[torch.Tensor] = None
 
 
 def member_live(state: SimState, horizon_us: float) -> torch.Tensor:
@@ -412,6 +469,22 @@ def member_live(state: SimState, horizon_us: float) -> torch.Tensor:
     live as it is."""
     done = state.vms.done.flatten(-2).all(-1) & ~state.pool.active.any(-1)
     return (state.t < horizon_us) & ~done
+
+
+def done_slots(state: SimState) -> torch.Tensor:
+    """Fully done job slots of a member (or per member); vacant slots
+    count too."""
+    return state.vms.done.all(-1).sum(-1)
+
+
+def window_stopped(state: SimState, t_stop, n0,
+                   horizon_us: float) -> torch.Tensor:
+    """``run_window``'s stop rule: a member stops when it is no longer
+    live, when its clock reaches ``t_stop``, or when more of its job slots
+    are done than the ``n0`` its window began with. Monotone: a stopped
+    member's ticks are no-ops, so it stays stopped."""
+    return ~(member_live(state, horizon_us) & (state.t < t_stop)
+             & (done_slots(state) <= n0))
 
 
 def _member_batched(fn):
@@ -751,7 +824,16 @@ def build_engine(
     def live(s: SimState):
         return member_live(s, horizon_us)
 
-    def tick_batched(state: SimState) -> SimState:
+    def tick_batched(state: SimState, t_cap=math.inf,
+                     stop_m: Optional[torch.Tensor] = None) -> SimState:
+        # ``t_cap`` (a scalar or a (B,) f32 tensor) clamps the PDES time
+        # skip (step 7) for windowed runs: it enters the wake-up minimum
+        # like a pending job's start, so a window boundary at an arrival
+        # leaves the trajectory that of an uninterrupted run with that job
+        # in the table. ``stop_m`` (B,) freezes members that reached their
+        # window event (run_window). At the default t_cap=inf neither step
+        # is taken: both would be exact no-ops, and ``run``'s tick stays
+        # as it was.
         jt = state.jobs
         t = state.t  # (B,)
         B = t.shape[0]
@@ -759,6 +841,11 @@ def build_engine(
         # per-member freeze mask: finished / horizon-capped members must
         # not mutate (bit-identity with their own B=1 run)
         live_m = live(state)
+        if stop_m is not None:
+            live_m = live_m & ~stop_m
+        windowed = isinstance(t_cap, torch.Tensor) or math.isfinite(t_cap)
+        if windowed:
+            t_cap = torch.as_tensor(t_cap, dtype=f32, device=dev)
 
         # --- 0. runtime fault mask -> effective per-link bandwidth ---
         flt = state.faults
@@ -980,11 +1067,20 @@ def build_engine(
         pend = ~started & live_r.any(dim=2)
         min_busy = torch.minimum(
             min_busy, torch.where(pend, jt.start, inf_f).amin(dim=1))
+        if windowed:
+            # the window cap is a wake-up too (a job about to be admitted)
+            min_busy = torch.minimum(min_busy, t_cap)
         if ur_state is not None:
             min_busy = torch.minimum(min_busy, ur_state.next_t.amin(dim=1))
         next_window = (win_idx.to(f32) + 1.0) * net.window_us
         skip_to = torch.minimum(min_busy, next_window)
         idle = ~any_active & ~can_act & torch.isfinite(skip_to)
+        if windowed:
+            # a member whose last job just completed must not jump ahead:
+            # the scheduler reads its ``t`` as "now" when it starts queued
+            # jobs on the freed nodes (without a window the run ends there)
+            all_done_m = vms.done.flatten(1).all(1) & ~any_active
+            idle = idle & ~(all_done_m & torch.isfinite(t_cap))
         t_new = torch.where(idle, torch.maximum(t + dt, skip_to), t + dt)
         t_out = torch.where(live_m, t_new, t)
 
@@ -1117,24 +1213,23 @@ def build_engine(
         )
 
     # ------------------------------------------------------------------
-    # run: tick until no member is live, reading liveness once a chunk
+    # run and run_window: the ticks of a chunk (or window) as replays of a
+    # captured graph on the card, eager on the CPU
     # ------------------------------------------------------------------
-    graphs: Dict[tuple, _TickGraph] = {}
-
-    def capture(state: SimState, n: int) -> _TickGraph:
-        """Capture ``n`` ticks of a state of this shape as a CUDA graph
-        over static buffers (a copy of ``state``): the ticks, then the last
-        tick's state copied back into the buffers and ``live(...).any()``
-        into a one-element flag. A failure to capture raises."""
+    def capture(state: SimState, n: int, step, finish, flag,
+                **buffers) -> _TickGraph:
+        """Capture ``n`` calls of ``step`` on a state of this shape as a
+        CUDA graph over static buffers (a copy of ``state``): the steps,
+        then the last state copied back into the buffers and ``finish``
+        of it, which writes ``flag``. A failure to capture raises."""
         static = _tree_map(torch.clone, state)
-        flag = torch.zeros((), dtype=torch.bool, device=dev)
-        # one eager tick first, its result dropped: it builds the kernels
+        # one eager step first, its result dropped: it builds the kernels
         # and sets up the libraries the tick calls, which must not happen
         # while a graph is captured
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            tick_batched(static)
+            step(static)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         calls0, launches0 = dict(KOPS.CALLS), dict(KOPS.LAUNCHES)
@@ -1142,11 +1237,11 @@ def build_engine(
             t0 = time.perf_counter()
             s = static
             for _ in range(n):
-                s = tick_batched(s)
+                s = step(s)
             for dst, src in zip(_leaves(static), _leaves(s)):
                 if dst is not src:
                     dst.copy_(src)
-            flag.copy_(live(s).any())
+            finish(s)
         t1 = time.perf_counter()
         graph.instantiate()
         t2 = time.perf_counter()
@@ -1154,14 +1249,16 @@ def build_engine(
             graph=graph, static=static, flag=flag, ticks=n,
             calls={k: KOPS.CALLS[k] - calls0[k] for k in calls0},
             launches={k: KOPS.LAUNCHES[k] - launches0[k] for k in launches0},
-            capture_s=t1 - t0, instantiate_s=t2 - t1)
+            capture_s=t1 - t0, instantiate_s=t2 - t1, **buffers)
 
-    def run_graphs(state: SimState, chunk: int, stats: RunStats) -> SimState:
-        n = math.gcd(chunk, GRAPH_TICKS)
-        key = (n,) + tuple(tuple(x.shape) for x in _leaves(state))
+    def load_graph(kind, n, state: SimState, graphs, stats: RunStats,
+                   make) -> _TickGraph:
+        """The graph of ``kind`` for ``state``'s shape (captured by
+        ``make`` on a miss), with ``state`` copied into its buffers."""
+        key = (kind, n) + tuple(tuple(x.shape) for x in _leaves(state))
         tg = graphs.get(key)
         if tg is None:
-            tg = capture(state, n)
+            tg = make(state, n)
             graphs[key] = tg
             stats.captured = True
         stats.graph_ticks = n
@@ -1169,54 +1266,265 @@ def build_engine(
         stats.graph_calls, stats.graph_launches = tg.calls, tg.launches
         for dst, src in zip(_leaves(tg.static), _leaves(state)):
             dst.copy_(src)
+        return tg
+
+    def capture_run(state: SimState, n: int) -> _TickGraph:
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        return capture(state, n, tick_batched,
+                       lambda s: flag.copy_(live(s).any()), flag)
+
+    def replay(tg: _TickGraph, reps: int, stats: RunStats, more) -> None:
+        """Replay ``tg``'s graph ``reps`` times between host reads of
+        ``more()`` until it says stop; the replays' CUDA-event time goes
+        into ``stats``."""
+        events = []
+        while True:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                tg.graph.replay()
+            b.record()
+            events.append((a, b))
+            stats.replays += reps
+            stats.liveness_reads += 1
+            if not more():
+                break
+        stats.replay_device_ms = sum(a.elapsed_time(b) for a, b in events)
+
+    def run_graphs(state: SimState, chunk: int, graphs,
+                   stats: RunStats) -> SimState:
+        n = math.gcd(chunk, GRAPH_TICKS)
+        tg = load_graph("run", n, state, graphs, stats, capture_run)
         stats.liveness_reads += 1
         if bool(live(tg.static).any()):
-            events = []
-            while True:
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                for _ in range(chunk // n):
-                    tg.graph.replay()
-                b.record()
-                events.append((a, b))
-                stats.replays += chunk // n
-                stats.liveness_reads += 1
-                if not bool(tg.flag):
-                    break
-            stats.replay_device_ms = sum(a.elapsed_time(b) for a, b in events)
+            replay(tg, chunk // n, stats, lambda: bool(tg.flag))
         stats.ticks = stats.replays * n
-        # a copy: the next run overwrites the static buffers
+        # a copy: the next call overwrites the static buffers
         return _tree_map(torch.clone, tg.static)
 
-    def run_batched(state: SimState, chunk: int = 64) -> SimState:
-        """Tick until no member is live. Liveness is read on the host once
-        per ``chunk`` ticks; the extra ticks of a finished member are
-        exact no-ops, so ``chunk`` does not change the result. On the card
-        the ticks are replays of a captured graph; on the CPU, eager."""
-        if chunk < 1:
-            raise ValueError("chunk must be >= 1")
-        stats = RunStats(device=dev.type)
+    def run_batched(state: SimState, chunk: int, graphs, stats: RunStats):
         if dev.type == "cuda":
-            state = run_graphs(state, chunk, stats)
-        else:
-            while True:
-                stats.liveness_reads += 1
-                if not bool(live(state).any()):
-                    break
-                for _ in range(chunk):
-                    state = tick_batched(state)
-                stats.ticks += chunk
-        engine.last_run = stats
-        return state
+            return run_graphs(state, chunk, graphs, stats)
+        while True:
+            stats.liveness_reads += 1
+            if not bool(live(state).any()):
+                return state
+            for _ in range(chunk):
+                state = tick_batched(state)
+            stats.ticks += chunk
 
-    engine = Engine(
+    def stopped(s: SimState, t_stop, n0):
+        return window_stopped(s, t_stop, n0, horizon_us)
+
+    def capture_window(state: SimState, n: int) -> _TickGraph:
+        B = state.t.shape[0]
+        t_stop = torch.full((B,), math.inf, dtype=f32, device=dev)
+        n0 = done_slots(state).clone()
+        flag = torch.zeros((2,), dtype=i64, device=dev)
+
+        def step(s):
+            stop = stopped(s, t_stop, n0)
+            flag[1:].add_((~stop).any().to(i64))  # a tick with a member live
+            return tick_batched(s, t_stop, stop_m=stop)
+
+        def finish(s):
+            flag[:1].copy_((~stopped(s, t_stop, n0)).any().to(i64))
+
+        return capture(state, n, step, finish, flag, t_stop=t_stop, n0=n0)
+
+    def window_graphs(state: SimState, t_stop, graphs,
+                      stats: RunStats) -> SimState:
+        n = GRAPH_TICKS
+        tg = load_graph("window", n, state, graphs, stats, capture_window)
+        tg.t_stop.copy_(t_stop)
+        tg.n0.copy_(done_slots(tg.static))
+        tg.flag.zero_()
+        stats.liveness_reads += 1
+        if bool((~stopped(tg.static, tg.t_stop, tg.n0)).any()):
+            def more():
+                go, stats.live_ticks = tg.flag.tolist()
+                return go
+
+            replay(tg, 1, stats, more)
+        stats.ticks = stats.replays * n
+        # a copy: the next call overwrites the static buffers
+        return _tree_map(torch.clone, tg.static)
+
+    def window_batched(state: SimState, t_stop, graphs, stats: RunStats):
+        B = state.t.shape[0]
+        t_stop = torch.as_tensor(np.broadcast_to(
+            np.asarray(t_stop, np.float32), (B,)).copy(), device=dev)
+        if dev.type == "cuda":
+            return window_graphs(state, t_stop, graphs, stats)
+        n0 = done_slots(state)
+        while True:
+            stop = stopped(state, t_stop, n0)
+            stats.liveness_reads += 1
+            if bool(stop.all()):
+                return state
+            state = tick_batched(state, t_stop, stop_m=stop)
+            stats.ticks += 1
+            stats.live_ticks += 1
+
+    return Engine(
         init_state=init_state,
-        run=_member_batched(run_batched),
         tick=_member_batched(tick_batched),
         capacity=cap,
+        device=dev,
+        run_fn=_member_batched(run_batched),
+        window_fn=_member_batched(window_batched),
     )
-    return engine
+
+
+# ---------------------------------------------------------------------------
+# process-wide engine cache: one engine per (capacity envelope, system
+# config, device). Job tables are runtime data, so every caller at the same
+# envelope and config (scenarios, member batches, the scheduler's windows)
+# shares one engine and, through it, its captured graphs (an engine bound
+# to a scenario's jobs shares them too).
+# ---------------------------------------------------------------------------
+
+_ENGINE_CACHE: "OrderedDict[Tuple, Engine]" = OrderedDict()
+_ENGINE_CACHE_STATS = {"hits": 0, "misses": 0, "builds": 0, "evictions": 0}
+# LRU bound on the cache (:func:`set_engine_cache_limit`): ``None``
+# (default) is unbounded; a long-lived process caps it so that device
+# memory stays bounded. A rebuild after
+# eviction gives the same bits: the key holds every input the engine bakes.
+_ENGINE_CACHE_MAX: Optional[int] = None
+
+
+def _cache_gauges() -> None:
+    """Mirror the cache's size and limit into the process metrics
+    registry."""
+    reg = get_registry()
+    reg.gauge("engine_cache_size",
+              "compiled engines held by the process-wide cache").set(
+        len(_ENGINE_CACHE))
+    limit = reg.gauge("engine_cache_limit",
+                      "LRU cap on the engine cache (0 = unbounded)")
+    limit.set(0 if _ENGINE_CACHE_MAX is None else _ENGINE_CACHE_MAX)
+
+
+def _evict_to_limit() -> None:
+    ev = get_registry().counter(
+        "engine_cache_evictions",
+        "engines dropped by the LRU cap (rebuilt on next request)")
+    while (_ENGINE_CACHE_MAX is not None
+           and len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX):
+        _, eng = _ENGINE_CACHE.popitem(last=False)
+        eng.drop_graphs()
+        _ENGINE_CACHE_STATS["evictions"] += 1
+        ev.inc()
+
+
+def set_engine_cache_limit(limit: Optional[int]) -> Optional[int]:
+    """Cap the process-wide engine cache at ``limit`` entries (LRU
+    eviction; ``None`` removes the cap). Returns the previous limit. An
+    evicted engine drops its captured graphs and rebuilds, with the same
+    bits, on its next request."""
+    global _ENGINE_CACHE_MAX
+    if limit is not None and limit < 1:
+        raise ValueError("engine cache limit must be >= 1 (or None)")
+    prev = _ENGINE_CACHE_MAX
+    _ENGINE_CACHE_MAX = limit
+    _evict_to_limit()
+    _cache_gauges()
+    return prev
+
+
+def engine_cache_key(
+    topo: Fabric,
+    *,
+    routing: str = "ADP",
+    ur: Optional[URSpec] = None,
+    net: Optional[NetConfig] = None,
+    pool_size: Optional[int] = None,
+    horizon_us: float = 500_000.0,
+    capacity: EngineCapacity,
+    device=None,
+    probes: Optional[ProbeConfig] = None,
+    hist: Optional[HistConfig] = None,
+) -> Tuple:
+    """Everything an engine bakes in besides the job tables: the fabric's
+    ``cache_key()``, the routing mode, the UR source's shape (its
+    placement is per-member init data), the net config, pool size,
+    horizon, capacity envelope, the device (CUDA's with its index) and the
+    observers. Fault masks are runtime data and not in the key."""
+    net = net or NetConfig()
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    ur_key = None if ur is None else (
+        int(ur.rank2node.shape[0]), float(ur.size_bytes),
+        float(ur.interval_us), float(ur.start_us),
+    )
+    return (
+        topo.cache_key(), routing.upper() in ("ADP", "ADAPTIVE"), ur_key,
+        net, int(pool_size or net.pool_size), float(horizon_us), capacity,
+        str(dev), probes, hist,
+    )
+
+
+def get_engine(
+    topo: Fabric,
+    *,
+    routing: str = "ADP",
+    ur: Optional[URSpec] = None,
+    net: Optional[NetConfig] = None,
+    pool_size: Optional[int] = None,
+    horizon_us: float = 500_000.0,
+    capacity: EngineCapacity,
+    device=None,
+    probes: Optional[ProbeConfig] = None,
+    hist: Optional[HistConfig] = None,
+) -> Engine:
+    """An engine from the process-wide cache (built on a miss).
+
+    Cached engines are built with an **empty default job set**: callers
+    pass their jobs at init time (``init_state(jobs_override=...)``, and
+    the UR placement as the final ``placements`` entry) or admit them
+    (:func:`admit_job`). :func:`build_engine` stays the uncached primitive.
+    """
+    key = engine_cache_key(
+        topo, routing=routing, ur=ur, net=net, pool_size=pool_size,
+        horizon_us=horizon_us, capacity=capacity, device=device,
+        probes=probes, hist=hist,
+    )
+    eng = _ENGINE_CACHE.get(key)
+    if eng is not None:
+        _ENGINE_CACHE_STATS["hits"] += 1
+        _ENGINE_CACHE.move_to_end(key)  # LRU: a hit is a use
+        return eng
+    _ENGINE_CACHE_STATS["misses"] += 1
+    _ENGINE_CACHE_STATS["builds"] += 1
+    eng = build_engine(
+        topo, [], routing=routing, ur=ur, net=net, pool_size=pool_size,
+        horizon_us=horizon_us, capacity=capacity, device=key[7],
+        probes=probes, hist=hist,
+    )
+    _ENGINE_CACHE[key] = eng
+    _evict_to_limit()
+    _cache_gauges()
+    return eng
+
+
+def engine_cache_stats() -> Dict[str, int]:
+    """Hit, miss, build and eviction counts, the current size and the LRU
+    limit (-1 = unbounded) of the process-wide cache."""
+    return dict(
+        _ENGINE_CACHE_STATS, size=len(_ENGINE_CACHE),
+        limit=-1 if _ENGINE_CACHE_MAX is None else _ENGINE_CACHE_MAX,
+    )
+
+
+def clear_engine_cache() -> None:
+    """Drop every cached engine and its captured graphs, and zero the
+    counters."""
+    for eng in _ENGINE_CACHE.values():
+        eng.drop_graphs()
+    _ENGINE_CACHE.clear()
+    _ENGINE_CACHE_STATS.update(hits=0, misses=0, builds=0, evictions=0)
 
 
 # ---------------------------------------------------------------------------
@@ -1247,3 +1555,209 @@ def stack_members(states: Sequence[SimState]) -> SimState:
     """Stack member states into one batch (leading member dim)."""
     return _tree_map(lambda *xs: torch.stack(xs), *states)
 
+
+
+# ---------------------------------------------------------------------------
+# job-slot admit/retire (the online scheduler's state surgery between
+# windows, on the host). A vacant slot has ``start == inf``, as
+# ``pack_jobs`` pads unused capacity and ``retire_job`` leaves a finished
+# slot; a retired slot's VMs are all done and its program is END-only, so
+# it is inert to the other jobs' trajectories (the chained-window tests pin
+# this). Surgery builds the new rows in numpy and writes them with one
+# indexed write per leaf into a new tensor: states stay values.
+# ---------------------------------------------------------------------------
+
+def vacant_slots(state: SimState) -> np.ndarray:
+    """Indices of the vacant job slots of a member state."""
+    return np.flatnonzero(np.isinf(_host(state.jobs.start)))
+
+
+def slot_done(state: SimState, slot: int) -> bool:
+    """Every rank of ``slot`` has reached END (its program finished)."""
+    return bool(state.vms.done[slot].all())
+
+
+def slot_in_flight(state: SimState, slot: int) -> bool:
+    """``slot`` still owns active pool messages. A slot must drain before
+    it is recycled: a reused slot id would credit in-flight deliveries to
+    the new tenant."""
+    return bool((state.pool.active & (state.pool.job == slot)).any())
+
+
+class WindowView(NamedTuple):
+    """What the scheduler reads between windows, fetched with one wait for
+    the device (:func:`window_host_view`). Per-member shapes (``(J,)``,
+    ``(J, Pmax)``) or with a leading batch dim; host numpy arrays."""
+
+    t: np.ndarray          # () | (B,)       float32 virtual clock
+    slot_done: np.ndarray  # (J,) | (B, J)   every rank at END
+    in_flight: np.ndarray  # (J,) | (B, J)   slot owns active pool msgs
+    lat_sum: np.ndarray    # per-slot latency sums (metrics app axis)
+    lat_cnt: np.ndarray    # per-slot delivered-message counts
+    comm_time: np.ndarray  # (J, Pmax) | (B, J, Pmax) per-rank comm time
+
+    def member(self, i: int) -> "WindowView":
+        """Member ``i``'s rows of a batched view (no further transfers)."""
+        return WindowView(*(a[i] for a in self))
+
+
+def _fetch(*xs: torch.Tensor):
+    """Host numpy copies of tensors, with one wait for the device."""
+    if xs[0].device.type != "cuda":
+        return [x.numpy().copy() for x in xs]
+    outs = [x.to("cpu", non_blocking=True) for x in xs]  # pinned copies
+    torch.cuda.current_stream(xs[0].device).synchronize()
+    return [o.numpy() for o in outs]
+
+
+def window_host_view(state: SimState) -> WindowView:
+    """The scheduler's per-window host view of a member or batched state:
+    six leaves fetched at once, the slot masks then computed on the host."""
+    t, done, active, job, lat_sum, lat_cnt, comm = _fetch(
+        state.t, state.vms.done, state.pool.active, state.pool.job,
+        state.metrics.lat_sum, state.metrics.lat_cnt, state.vms.comm_time)
+    slot_done_m = done.all(axis=-1)
+    J = done.shape[-2]
+    in_flight = np.zeros(slot_done_m.shape, bool)
+    sel = active & (job < J)  # UR traffic uses the extra app id J
+    if slot_done_m.ndim == 1:
+        in_flight[job[sel]] = True
+    else:
+        b_idx = np.broadcast_to(
+            np.arange(job.shape[0])[:, None], job.shape)[sel]
+        in_flight[b_idx, job[sel]] = True
+    return WindowView(t, slot_done_m, in_flight, lat_sum, lat_cnt, comm)
+
+
+def _slot_rows(specs: Sequence[Optional[JobSpec]], J: int, OPmax: int,
+               Pmax: int, slots: Sequence[int]):
+    """Job-table rows and VM ``done`` rows for slots that take ``specs``
+    (None: vacated), as numpy arrays with a leading row axis."""
+    K = len(specs)
+    ops = np.zeros((K, OPmax, 4), np.int32)
+    ops[:, :, 0] = OP["END"]
+    grid = np.zeros((K, OPmax, 4), np.int32)
+    P = np.ones((K,), np.int32)
+    logp = np.ones((K,), np.int32)
+    r2n = np.zeros((K, Pmax), np.int32)
+    slow = np.ones((K, Pmax), np.float32)
+    start = np.full((K,), np.inf, np.float32)
+    done = np.ones((K, Pmax), bool)
+    for k, (spec, slot) in enumerate(zip(specs, slots)):
+        if not 0 <= slot < J:
+            raise ValueError(f"slot {slot} outside envelope Jmax={J}")
+        if spec is None:
+            continue
+        sk = spec.skeleton
+        if sk.n_ranks > Pmax or sk.n_ops > OPmax:
+            raise ValueError(
+                f"job {spec.name!r} ({sk.n_ranks} ranks, {sk.n_ops} ops) "
+                f"exceeds engine capacity (Pmax={Pmax}, OPmax={OPmax})"
+            )
+        ops[k, : sk.n_ops] = sk.ops
+        grid[k, : sk.n_ops] = sk.grid
+        P[k] = sk.n_ranks
+        logp[k] = _ceil_log2(sk.n_ranks)
+        r2n[k, : sk.n_ranks] = np.asarray(spec.rank2node, np.int32)
+        start[k] = np.float32(spec.start_us)
+        done[k] = np.arange(Pmax) >= sk.n_ranks
+    return JobTable(ops, grid, P, logp, r2n, slow, start), done
+
+
+def _write_slots(state: SimState, idx, table: JobTable,
+                 done: np.ndarray) -> SimState:
+    """A new state whose job slots at ``idx`` (index arrays: slots, or
+    members and slots) hold ``table``'s rows and fresh VM rows."""
+    dev = state.t.device
+    idx = tuple(torch.as_tensor(np.asarray(i, np.int64), device=dev)
+                for i in idx)
+
+    def put(leaf, rows):
+        return leaf.index_put(idx, torch.as_tensor(rows, device=dev))
+
+    jobs = JobTable(*[put(leaf, rows) for leaf, rows in zip(state.jobs,
+                                                           table)])
+    vms = VMState(*[
+        put(leaf, done) if name == "done"
+        else leaf.index_put(idx, torch.zeros(
+            (len(done),) + tuple(leaf.shape[-1:]), dtype=leaf.dtype,
+            device=dev))
+        for name, leaf in zip(VMState._fields, state.vms)])
+    return state._replace(jobs=jobs, vms=vms)
+
+
+def admit_jobs(state: SimState,
+               admits: Sequence[Tuple[int, int, JobSpec]]) -> SimState:
+    """Write many jobs into vacant slots of a **batched** state at once:
+    ``admits`` is ``[(member, slot, spec), ...]`` with distinct
+    ``(member, slot)`` pairs (so the writes are deterministic), one
+    indexed write per state leaf. Envelope checks run here; vacancy is the
+    caller's bookkeeping."""
+    if not admits:
+        return state
+    jt = state.jobs
+    J, OPmax, Pmax = jt.ops.shape[-3], jt.ops.shape[-2], jt.r2n.shape[-1]
+    table, done = _slot_rows([a[2] for a in admits], J, OPmax, Pmax,
+                             [a[1] for a in admits])
+    return _write_slots(state, ([a[0] for a in admits],
+                                [a[1] for a in admits]), table, done)
+
+
+def retire_jobs(state: SimState,
+                retires: Sequence[Tuple[int, int]]) -> SimState:
+    """Vacate many ``(member, slot)`` pairs of a **batched** state at once,
+    the multi-member :func:`retire_job`. Done and drained checks are the
+    caller's (the scheduler has just read both masks)."""
+    if not retires:
+        return state
+    jt = state.jobs
+    J, OPmax, Pmax = jt.ops.shape[-3], jt.ops.shape[-2], jt.r2n.shape[-1]
+    table, done = _slot_rows([None] * len(retires), J, OPmax, Pmax,
+                             [s for _, s in retires])
+    return _write_slots(state, ([m for m, _ in retires],
+                                [s for _, s in retires]), table, done)
+
+
+def occupied_node_mask(state: SimState, n_nodes: int) -> np.ndarray:
+    """(n_nodes,) bool: the nodes held by the non-vacant slots of a member
+    state, the free-node accounting the scheduler places against."""
+    occ = np.zeros((n_nodes,), bool)
+    start, P, r2n = _fetch(state.jobs.start, state.jobs.P, state.jobs.r2n)
+    for j in np.flatnonzero(np.isfinite(start)):
+        occ[r2n[j, : int(P[j])]] = True
+    return occ
+
+
+def admit_job(state: SimState, slot: int, spec: JobSpec,
+              checked: bool = True) -> SimState:
+    """Write ``spec`` into vacant job ``slot`` of a member state: its
+    program, placement and arrival rows and fresh VM rows (padded ranks
+    born done); the other slots are untouched. The job idles until
+    ``spec.start_us``. ``checked=False`` skips the vacancy check (a device
+    read) for callers whose own bookkeeping tracks the slots."""
+    jt = state.jobs
+    J, OPmax, Pmax = jt.ops.shape[0], jt.ops.shape[1], jt.r2n.shape[1]
+    if checked and 0 <= slot < J and not math.isinf(float(jt.start[slot])):
+        raise ValueError(f"slot {slot} is occupied (start="
+                         f"{float(jt.start[slot])}); retire it first")
+    table, done = _slot_rows([spec], J, OPmax, Pmax, [slot])
+    return _write_slots(state, ([slot],), table, done)
+
+
+def retire_job(state: SimState, slot: int, checked: bool = True) -> SimState:
+    """Vacate job ``slot`` of a member state: END-only program,
+    ``start=inf``, all-done VMs. The slot must have finished
+    (``slot_done``) and drained (``not slot_in_flight``); ``checked=False``
+    skips those two device reads for callers that just read the masks
+    from :func:`window_host_view`."""
+    jt = state.jobs
+    J, OPmax, Pmax = jt.ops.shape[0], jt.ops.shape[1], jt.r2n.shape[1]
+    if checked and 0 <= slot < J:
+        if not slot_done(state, slot):
+            raise ValueError(
+                f"slot {slot} has unfinished ranks; cannot retire")
+        if slot_in_flight(state, slot):
+            raise ValueError(f"slot {slot} still has in-flight messages; "
+                             "drain before retiring")
+    table, done = _slot_rows([None], J, OPmax, Pmax, [slot])
+    return _write_slots(state, ([slot],), table, done)

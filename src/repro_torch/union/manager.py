@@ -1,10 +1,10 @@
 """The workload manager: Scenario -> engine inputs -> one simulation.
 
 ``resolve`` turns a declarative :class:`~repro_torch.union.scenario.Scenario`
-into everything :func:`repro_torch.netsim.engine.build_engine` needs
-(skeletons, topology, placements, NetConfig, arrival offsets); ``build``
-builds the engine on a device; ``run_scenario`` runs a single member and
-returns the standard report.
+into everything the engine needs (skeletons, topology, placements,
+NetConfig, arrival offsets); ``build`` takes the engine for its envelope
+from the process-wide cache on a device and binds the scenario's jobs;
+``run_scenario`` runs a single member and returns the standard report.
 
 Every entry point runs on CUDA unless the caller passes ``device``
 (``"cpu"`` for the CPU); without a card it raises rather than run on the
@@ -17,6 +17,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
 
 from repro_torch.core import workloads as W
 from repro_torch.core.translator import translate_source
@@ -27,7 +28,7 @@ from repro_torch.netsim.engine import (
     EngineCapacity,
     JobSpec,
     URSpec,
-    build_engine,
+    get_engine,
     job_vm,
 )
 from repro_torch.netsim.placement import place_jobs
@@ -136,20 +137,50 @@ def build(rs: ResolvedScenario, device=None, probes=None,
           hist=None) -> Engine:
     """The engine for a resolved scenario on ``device`` (CUDA by default):
     an :class:`~repro_torch.netsim.engine.Engine` that unpacks as
-    ``init, run, tick``, built with this scenario's jobs, UR placement and
-    capacity envelope (``reserve`` included). There is no engine cache, so
-    the JAX package's job-free engine and its ``bind_jobs`` wrapper have
-    nothing to do here.
+    ``init, run, tick`` and carries ``run_window``.
 
-    ``probes`` (a :class:`repro_torch.obs.ProbeConfig`) and ``hist`` (a
-    :class:`repro_torch.obs.HistConfig`) compile the probe rings and the
-    full-fidelity latency histograms into the engine's tick.
+    It is the process-wide cache's engine for this scenario's envelope
+    (``reserve`` included) and system config
+    (:func:`~repro_torch.netsim.engine.get_engine`), bound to this
+    scenario's jobs and UR placement (:func:`bind_jobs`). ``probes`` (a
+    :class:`repro_torch.obs.ProbeConfig`) and ``hist`` (a
+    :class:`repro_torch.obs.HistConfig`) select the engine with the probe
+    rings and the full-fidelity latency histograms compiled into its
+    tick, its own cache entry.
     """
-    return build_engine(
-        rs.topo, rs.jobs, routing=rs.scenario.routing, ur=rs.ur, net=rs.net,
+    eng = get_engine(
+        rs.topo, routing=rs.scenario.routing, ur=rs.ur, net=rs.net,
         pool_size=rs.pool_size, horizon_us=rs.horizon_us,
         capacity=rs.capacity, device=device, probes=probes, hist=hist,
     )
+    return bind_jobs(eng, rs)
+
+
+def bind_jobs(eng: Engine, rs: ResolvedScenario) -> Engine:
+    """A cached (job-free) engine whose ``init_state`` defaults to this
+    scenario's jobs and UR placement. It shares the cached engine's tables,
+    functions and captured graphs; its ``run``/``run_window`` write their
+    ``RunStats`` on it (``last_run``, ``last_window``)."""
+    default_placements = [np.asarray(j.rank2node) for j in rs.jobs]
+    if rs.ur is not None:
+        default_placements.append(np.asarray(rs.ur.rank2node))
+
+    def init_state(seed: int = 1, placements=None, start_us=None,
+                   jobs_override=None, rank_slowdown_override=None,
+                   faults=None):
+        if jobs_override is None:
+            jobs_override = rs.jobs
+            if placements is None:
+                placements = default_placements
+        return eng.init_state(
+            seed=seed, placements=placements, start_us=start_us,
+            jobs_override=jobs_override,
+            rank_slowdown_override=rank_slowdown_override,
+            faults=faults,
+        )
+
+    return dataclasses.replace(eng, init_state=init_state, last_run=None,
+                               last_window=None)
 
 
 def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,

@@ -96,7 +96,11 @@ def card():
 def _engine(case, dev, **kw):
     sc, seed = golden_scenarios()[case]
     rs = MGR.resolve(sc, seed=seed)
-    return rs, MGR.build(rs, device=dev, **kw), engine_seed(seed)
+    eng = MGR.build(rs, device=dev, **kw)
+    # a scenario's engine shares the cached engine's graphs: each test
+    # starts from a fresh capture
+    eng.drop_graphs()
+    return rs, eng, engine_seed(seed)
 
 
 @pytest.mark.cuda

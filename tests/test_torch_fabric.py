@@ -2,8 +2,10 @@
 
 The port keeps its own copies of the DSL, the skeleton translator, the
 workloads, the dragonfly builders, the placement policies, the model
-configuration and the architecture registry. Built from the same inputs,
-each must give what the JAX package's module gives.
+configuration and the architecture registry, the scheduler's traces and
+queue policies, and the host-plane observability modules (spans, export,
+metrics, sim-time timelines). Built from the same inputs, each must give
+what the JAX package's module gives.
 """
 import dataclasses
 
@@ -12,12 +14,20 @@ import pytest
 
 from repro import configs as ref_configs
 from repro.core import workloads as ref_workloads
+from repro.obs import export as ref_export
+from repro.obs import metrics as ref_metrics
+from repro.obs import spans as ref_spans
+from repro.obs import timeline as ref_timeline
+from repro.sched import queue as ref_queue
+from repro.sched import trace as ref_trace
 from repro.netsim.fabric import get_fabric as ref_get_fabric
 from repro.netsim.placement import place_jobs as ref_place_jobs
 from repro_torch import configs
 from repro_torch.core import workloads
 from repro_torch.netsim.fabric import get_fabric
 from repro_torch.netsim.placement import place_jobs
+from repro_torch.obs import export, metrics, spans, timeline
+from repro_torch.sched import queue, trace
 from repro_torch.union.scenario import Scenario, ScenarioJob, mix_scenario
 
 DRAGONFLIES = [(n, s) for n in ("1d", "2d") for s in ("small", "paper")]
@@ -111,3 +121,187 @@ def test_registry_matches_and_refuses_the_rest():
     cfg = ref_configs.get_config("jamba_v01_52b")
     assert dataclasses.asdict(configs.smoke_shrink(cfg)) == \
         dataclasses.asdict(ref_configs.smoke_shrink(cfg))
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's traces and queue policies
+# ---------------------------------------------------------------------------
+
+def _paper_catalog(mod):
+    """Table III applications at their paper rank counts."""
+    return [
+        mod.CatalogApp(app="cosmoflow", est_runtime_us=130_000.0,
+                       weight=0.5, overrides={"iters": 1}),
+        mod.CatalogApp(app="nn", est_runtime_us=5_000.0, weight=2.0,
+                       overrides={"iters": 2}),
+        mod.CatalogApp(app="milc", est_runtime_us=4_000.0, weight=0.5,
+                       overrides={"iters": 1}),
+    ]
+
+
+@pytest.mark.parametrize("catalog", ["default", "paper"])
+@pytest.mark.parametrize("arrival", ["poisson", "weibull"])
+def test_synthetic_traces_match(arrival, catalog):
+    for seed in (0, 3, 11):
+        kw = dict(arrival=arrival, mean_gap_us=700.0, seed=seed, slots=4)
+        if catalog == "paper":
+            kw.update(scale="paper")
+            want = ref_trace.synthetic_trace(
+                9, catalog=_paper_catalog(ref_trace), **kw)
+            got = trace.synthetic_trace(9, catalog=_paper_catalog(trace),
+                                        **kw)
+        else:
+            want = ref_trace.synthetic_trace(9, **kw)
+            got = trace.synthetic_trace(9, **kw)
+        assert got.to_dict() == want.to_dict()
+    assert [dataclasses.asdict(c) for c in trace.default_catalog()] == \
+        [dataclasses.asdict(c) for c in ref_trace.default_catalog()]
+
+
+def test_trace_roundtrip_and_unported_fabrics(tmp_path):
+    tr = trace.synthetic_trace(6, seed=2, placement="RR")
+    p = str(tmp_path / "t.json")
+    tr.to_json(p)
+    assert trace.load_trace(p) == tr
+    assert ref_trace.load_trace(p).to_dict() == tr.to_dict()
+    with pytest.raises(ValueError, match="unknown trace keys"):
+        trace.Trace.from_dict(dict(tr.to_dict(), slotz=3))
+    for fabric in ("fat_tree", "torus"):
+        # the JAX package accepts these fabrics; the port refuses them
+        ref_trace.Trace.from_dict(dict(tr.to_dict(), topo=fabric))
+        with pytest.raises(ValueError, match="not yet ported"):
+            trace.Trace.from_dict(dict(tr.to_dict(), topo=fabric))
+    with pytest.raises(ValueError, match="unknown topo"):
+        trace.Trace.from_dict(dict(tr.to_dict(), topo="3d"))
+
+
+def _queue_jobs(mod, rng, n):
+    return [mod.QueuedJob(jid=i, name=f"j{i}",
+                          n_ranks=int(rng.integers(1, 17)),
+                          arrival_us=float(round(rng.uniform(0, 5000), 1)),
+                          est_runtime_us=float(round(rng.uniform(1, 3000),
+                                                     1)))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("policy", ["fcfs", "easy", "conservative"])
+def test_queue_policies_match(policy):
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        n, nodes, slots = int(rng.integers(1, 16)), 20, int(
+            rng.integers(1, 5))
+        want = ref_queue.simulate_queue(
+            _queue_jobs(ref_queue, np.random.default_rng(seed), n),
+            nodes, slots, policy=policy)
+        got = queue.simulate_queue(
+            _queue_jobs(queue, np.random.default_rng(seed), n), nodes,
+            slots, policy=policy)
+        assert got["spans"] == want["spans"]
+        assert got["makespan_us"] == want["makespan_us"]
+        assert [dataclasses.asdict(r) for r in got["reservations"]] == \
+            [dataclasses.asdict(r) for r in want["reservations"]]
+        # one decision of PendingQueue.select with jobs running
+        rq, q = ref_queue.PendingQueue(policy), queue.PendingQueue(policy)
+        for j, k in zip(
+                _queue_jobs(ref_queue, np.random.default_rng(seed + 99), n),
+                _queue_jobs(queue, np.random.default_rng(seed + 99), n)):
+            rq.push(j)
+            q.push(k)
+        running = [(600.0, 6), (1500.0, 3)]
+        ws, wr = rq.select(0.0, 8, slots, running)
+        gs, gr = q.select(0.0, 8, slots, running)
+        assert [j.jid for j in gs] == [j.jid for j in ws]
+        assert (dataclasses.asdict(gr) if gr else None) == \
+            (dataclasses.asdict(wr) if wr else None)
+        assert [j.jid for j in q.jobs] == [j.jid for j in rq.jobs]
+
+
+# ---------------------------------------------------------------------------
+# host-plane observability: spans, export, metrics, sim-time timelines
+# ---------------------------------------------------------------------------
+
+SPAN_EVENTS = [
+    dict(name="sched.window", cat="sched", ts_us=1.0, dur_us=40.0,
+         cpu_ms=0.03, tid=0, args=dict(window=0)),
+    dict(name="engine.get", cat="engine", ts_us=2.0, dur_us=5.0,
+         cpu_ms=0.01, tid=0),
+    dict(name="sched.window", cat="sched", ts_us=50.0, dur_us=60.0,
+         cpu_ms=0.05, tid=1, args=dict(window=1)),
+    dict(name="cache", cat="counter", ph="C", ts_us=70.0,
+         args=dict(hits=3.0)),
+    dict(name="union.run", cat="host", ts_us=0.0, dur_us=200.0,
+         cpu_ms=0.2, tid=0),
+]
+
+
+def test_span_tracer_and_exports_match(tmp_path):
+    assert spans.summarize(SPAN_EVENTS, top=2) == \
+        ref_spans.summarize(SPAN_EVENTS, top=2)
+    assert export.chrome_events(SPAN_EVENTS, pid=7) == \
+        ref_export.chrome_events(SPAN_EVENTS, pid=7)
+    paths = [str(tmp_path / f"{k}.jsonl") for k in ("got", "want")]
+    export.write_jsonl(paths[0], SPAN_EVENTS)
+    ref_export.write_jsonl(paths[1], SPAN_EVENTS)
+    assert open(paths[0]).read() == open(paths[1]).read()
+    tracer = spans.get_tracer()
+    was = spans.tracing()
+    tracer.clear()
+    spans.enable()
+    try:
+        with spans.span("outer", cat="sched", k=1) as h:
+            h.set(extra=2)
+            spans.counter("depth", queued=3)
+    finally:
+        if not was:
+            spans.disable()
+    names = [(e["name"], e.get("cat"), e.get("args")) for e in tracer.events]
+    tracer.clear()
+    assert ("outer", "sched", dict(k=1, extra=2)) in names
+    assert ("depth", "counter", dict(queued=3.0)) in names
+
+
+def _registry(mod):
+    reg = mod.MetricsRegistry()
+    reg.counter("cells_done", "cells finished").inc(3, policy="easy")
+    reg.counter("cells_done").inc(policy="fcfs")
+    reg.gauge("engine_cache_size", "engines held").set(2)
+    h = reg.histogram("window_ms", "window wall ms", buckets=(1.0, 10.0))
+    for v in (0.5, 3.0, 30.0):
+        h.observe(v)
+    return reg
+
+
+def test_metrics_registry_matches():
+    assert _registry(metrics).render_openmetrics() == \
+        _registry(ref_metrics).render_openmetrics()
+
+
+def _timeline(mod):
+    rec = mod.TimelineRecorder()
+    rec.sample_queue(0.0, 1)
+    rec.start(0, False)
+    rec.sample_queue(100.0, 2)
+    rec.start(2, True)
+    rec.retire(0, 900.0)
+    rec.retire(2, 950.0)
+
+    class R:  # the JobRecord fields the recorder reads
+        def __init__(self, jid, slot, start, finish, completed=True):
+            self.jid, self.name, self.app, self.n_ranks = \
+                jid, f"j{jid}", "pp", 2
+            self.arrival_us, self.slot = 10.0 * jid, slot
+            self.start_us, self.finish_us = start, finish
+            self.completed = completed
+
+    recs = [R(0, 0, 0.0, 880.0), R(1, -1, float("nan"), float("nan"),
+                                   False), R(2, 1, 100.0, 940.0)]
+    return rec.to_dict(recs, 2)
+
+
+def test_sim_timelines_match():
+    got, want = _timeline(timeline), _timeline(ref_timeline)
+    assert got == want
+    g = timeline.sim_chrome_trace([("cell", got)])
+    w = ref_timeline.sim_chrome_trace([("cell", want)])
+    assert g["traceEvents"] == w["traceEvents"]
+    assert g["otherData"]["time_domain"] == w["otherData"]["time_domain"]

@@ -12,7 +12,10 @@ On the small 1D dragonfly (pool 1,024, tick 2 µs, as
   on it, a router outage silences its links, a mask put on a healthy
   state by ``with_faults`` runs as one given to ``init_state`` — and
   each of these faulted runs equals the JAX engine's run with the same
-  mask, every leaf (integers exact, floats to rtol 1e-5).
+  mask, every leaf (integers exact, floats to rtol 1e-5);
+* timelines applied mid-run: the outage of ``tests/test_faults.py:250``
+  through ``run_window`` to each fault event and ``with_faults`` between
+  windows, every window and the end state equal to the JAX engine's.
 """
 import jax
 import numpy as np
@@ -24,6 +27,7 @@ from repro.netsim import faults as REF_F
 from repro.netsim.config import NetConfig as RefNetConfig
 from repro.netsim.topology import dragonfly_1d_small as ref_dragonfly
 from repro.core.translator import translate_source as ref_translate
+from repro_torch.netsim import engine as ENG
 from repro_torch.netsim import faults as F
 from repro_torch.netsim import metrics as MET
 from repro_torch.netsim.config import NetConfig
@@ -31,7 +35,8 @@ from repro_torch.netsim.engine import JobSpec, build_engine, job_vm
 from repro_torch.netsim.state_io import state_to_numpy
 from repro_torch.netsim.topology import dragonfly_1d_small
 from repro_torch.core.translator import translate_source
-from torch_parity import assert_bitwise_equal, assert_port_equals_ref
+from torch_parity import (
+    assert_bitwise_equal, assert_port_equals_ref, port_leaves)
 
 SRC = (
     "For 6 repetitions {\n"
@@ -259,3 +264,85 @@ def test_surgery_puts_masks_on_the_state(topo):
     assert out.faults.router_factor[1].numpy().tobytes() \
         == mask.router_factor.tobytes()
     assert torch.equal(batch.faults.router_factor, before)  # a new state
+
+
+# ---------------------------------------------------------------------------
+# timelines applied mid-run, between windows
+# ---------------------------------------------------------------------------
+
+def _xgroup(topo, js, translate, name, node_offset=0, start_us=0.0):
+    src = (
+        "For 6 repetitions {\n"
+        " task 0 sends a 65536 byte message to task 1 then\n"
+        " task 1 sends a 65536 byte message to task 0 }"
+    )
+    npg = topo.routers_per_group * topo.nodes_per_router
+    return js(name, translate(src, name, 2),
+              np.asarray([node_offset, npg + node_offset]),
+              start_us=start_us)
+
+
+def test_midrun_outage_reroutes_and_recovers(topo, ref_topo):
+    """``tests/test_faults.py:250`` on the port: every direct group-0/1
+    global link dies at 150 µs and returns at 400 µs; windows land on the
+    two events and the masks are swapped between them (``with_faults``)."""
+    def jobs(t, js, tr):
+        return [_xgroup(t, js, tr, "a"),
+                _xgroup(t, js, tr, "b", node_offset=1, start_us=200.0)]
+
+    port = ENG.build_engine(
+        topo, jobs(topo, ENG.JobSpec, translate_source),
+        net=NetConfig(pool_size=1024, tick_us=2.0), pool_size=1024,
+        horizon_us=300_000.0, device="cpu")
+    ref = REF_ENG.build_engine(
+        ref_topo, jobs(ref_topo, REF_ENG.JobSpec, ref_translate),
+        net=RefNetConfig(pool_size=1024, tick_us=2.0), pool_size=1024,
+        horizon_us=300_000.0)
+    dead = [int(topo.global_link_id[a, b, m])
+            for m in range(topo.links_per_pair) for a, b in ((0, 1), (1, 0))]
+    glob = np.flatnonzero(np.asarray(topo.link_levels()["global"]))
+    other = np.asarray([g for g in glob if g not in dead])
+    L = topo.n_links
+
+    st_ok = port.run(port.init_state())
+    lb_ok = st_ok.metrics.link_bytes.numpy()[:L]
+    assert lb_ok[other].sum() == 0.0  # healthy: direct links only
+
+    def events(mod):
+        return mod.FailureSpec(name="outage", events=[
+            mod.FaultEvent(t_us=150.0, kind="links", links=tuple(dead)),
+            mod.FaultEvent(t_us=400.0, kind="links", links=tuple(dead),
+                           factor=1.0),
+        ])
+
+    tl, rtl = events(F).timeline(topo, 0), events(REF_F).timeline(ref_topo, 0)
+    state = port.init_state(faults=tl[0][1])
+    rstate = ref.init_state(faults=rtl[0][1])
+    snaps = {}
+    for (t_ev, mask), (_, rmask) in zip(tl[1:], rtl[1:]):
+        state = port.run_window(state, np.float32(t_ev))
+        rstate = jax.block_until_ready(
+            ref.run_window(rstate, np.float32(t_ev)))
+        assert_port_equals_ref(state, rstate)
+        snaps[t_ev] = state.metrics.link_bytes.numpy()[:L]
+        state = F.with_faults(state, mask)
+        rstate = REF_F.with_faults(rstate, rmask)
+    st_f = port.run(state)
+    assert_port_equals_ref(st_f, jax.block_until_ready(ref.run(rstate)))
+
+    assert bool(ENG.job_vm(st_f, 0).done.all())
+    assert bool(ENG.job_vm(st_f, 1).done.all())
+    assert int(st_f.pool.dropped) == 0
+    # dead links: frozen during the outage, resume after the restore
+    assert snaps[150.0][dead].sum() == snaps[400.0][dead].sum()
+    lb_f = st_f.metrics.link_bytes.numpy()[:L]
+    assert lb_f[dead].sum() > snaps[400.0][dead].sum()
+    # job B rerouted: its traffic rode other global links, two hops each
+    b_bytes = lb_ok[dead].sum() - lb_f[dead].sum()
+    assert lb_f[other].sum() >= 2.0 * b_bytes > 0.0
+    # the stall costs job A latency
+    lat = port_leaves(st_f)["metrics.lat_sum"] / np.maximum(
+        port_leaves(st_f)["metrics.lat_cnt"], 1)
+    lat_ok = port_leaves(st_ok)["metrics.lat_sum"] / np.maximum(
+        port_leaves(st_ok)["metrics.lat_cnt"], 1)
+    assert lat[0] > lat_ok[0]

@@ -27,6 +27,8 @@ for name in names:
     importlib.import_module(name)
 assert "repro_torch.launch.sim" in names, names
 assert "repro_torch.launch.serve" in names, names
+assert "repro_torch.sched.scheduler" in names, names
+assert "repro_torch.obs.timeline" in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
