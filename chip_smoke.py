@@ -84,6 +84,21 @@ its seconds, and any failure raises (non-zero exit, no result line):
    finds each of their 8 kernels once a tick), at least 4 jobs complete
    and a slot is recycled; windows, jobs, no-op ticks, replay device ms a
    tick, host ms a window, capture seconds and peak memory of each run;
+   ``paper_1d_experiment``: the experiment facade (``union.run``) on one
+   study at the 1D paper scale: workload1 to 10 ms under placements RN
+   and RG, 2 members, healthy and with 2 % of the links down from 3 to
+   7 ms (one batched node of 8 cells: a stacked graph ``run`` and
+   ``run_window`` rounds), and the trace cut to 10 ms under FCFS and EASY
+   crossed with the same failures (one lock-step node of 4 cells),
+   against a store in a temporary directory, the launch counts set to 0
+   before and read after: healthy cells equal their members run alone
+   and trace cells their cells alone (integers exact, floats bit for
+   bit), launches equal the ticks replayed, a rerun from the store
+   executes 0 cells, ``Results.save``/``load`` keep the cells; the
+   study's and each node kind's wall s, member-virtual-ms and jobs per
+   wall s, the host share outside the replays, engine-cache hits and
+   builds, peak memory, the plan, ``format_results`` and the outage's
+   interference matrix;
    then the paper-scale 2D dragonfly (workload3) as in 7, shorter;
 9. Mamba-2 370M at full width (48 layers, seeded random weights, float32
    weights, bfloat16 compute) through ``make_prefill_step`` on 8 requests
@@ -95,8 +110,9 @@ its seconds, and any failure raises (non-zero exit, no result line):
    tokens): served tokens, decode tokens per second; a profile of one
    decode step;
 11. the kernel summary line (each kernel's launches as read in the counted
-   windows, the simulator kernels' also on the trace's windows, its
-   largest error against its plain version), then the result line.
+   windows, the simulator kernels' also on the trace's windows and the
+   facade's run, its largest error against its plain version), then the
+   result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``); the card
 tests' input generators come from ``tests/test_torch_*_cuda.py``, which
@@ -1359,10 +1375,10 @@ TRACE_JOBS, TRACE_GAP_US, TRACE_HORIZON_MS, TRACE_SLOTS = 16, 1000.0, 20.0, 4
 TRACE_EAGER_WINDOWS = 3  # windows of the easy cell held to eager ticks
 
 
-def paper_trace(scale="paper"):
+def paper_trace(scale="paper", horizon_ms=TRACE_HORIZON_MS):
     """16 Poisson arrivals (mean gap 1 ms, seed 0) of the catalog on the
     1D dragonfly: tick 5 µs, ADP routing, RN placement, 4 slots, the
-    paper pool (65,536 messages), horizon 20 ms."""
+    paper pool (65,536 messages), horizon 20 ms (or ``horizon_ms``)."""
     from repro_torch.sched.trace import CatalogApp, synthetic_trace
 
     cat = [CatalogApp(app=a, est_runtime_us=e, weight=w,
@@ -1371,7 +1387,7 @@ def paper_trace(scale="paper"):
     return synthetic_trace(
         TRACE_JOBS, arrival="poisson", mean_gap_us=TRACE_GAP_US, seed=0,
         catalog=cat, topo="1d", scale=scale, placement="RN", routing="ADP",
-        tick_us=5.0, horizon_ms=TRACE_HORIZON_MS, slots=TRACE_SLOTS)
+        tick_us=5.0, horizon_ms=horizon_ms, slots=TRACE_SLOTS)
 
 
 def trace_outage():
@@ -1560,6 +1576,223 @@ def phase_trace(dev):
               batched_equal_sequential=3, eager_windows=eager,
               window_profile=window_prof, counted_calls=counted))
     return dict(drain_tick=launches, link_demand=launches, ticks=ticks)
+
+
+# ---------------------------------------------------------------------------
+# paper_1d_experiment: the experiment facade on the paper's 1D system
+# ---------------------------------------------------------------------------
+
+EXPERIMENT_HORIZON_MS = 10.0
+
+
+def experiment_outage():
+    """``trace_outage``'s form inside the 10 ms horizon: 2 % of the
+    fabric links down at 3 ms and back at 7 ms (seed 7)."""
+    from repro_torch.netsim.faults import FailureSpec, FaultEvent
+
+    return FailureSpec(name="outage", events=[
+        FaultEvent(t_us=3_000.0, kind="random_links", fraction=0.02, seed=7),
+        FaultEvent(t_us=7_000.0, kind="random_links", fraction=0.02,
+                   seed=7, factor=1.0)])
+
+
+def paper_experiment():
+    """One study at the 1D paper scale (as paper_1d: 65,536-message pool,
+    5 µs tick, ADP): workload1 to 10 ms under placements RN and RG, 2
+    members, healthy and with ``experiment_outage`` (8 cells, one batched
+    node: 4 plain members in one stacked ``run``, 4 timed ones through
+    ``run_window`` rounds); and ``paper_trace`` cut to 10 ms under FCFS
+    and EASY, 1 seed, which the failures axis crosses too (one
+    ``windowed_batch`` node of 4 cells)."""
+    from repro_torch import union
+    from repro_torch.union.scenario import mix_scenario
+
+    sc = mix_scenario("workload1", topo="1d", scale="paper", placement="RG",
+                      routing="ADP", tick_us=5.0,
+                      horizon_ms=EXPERIMENT_HORIZON_MS)
+    return union.Experiment(
+        name="paper_1d_experiment", scenarios=[sc], members=2,
+        grid=union.StudyGrid(placements=["RN", "RG"],
+                             failures=["healthy", experiment_outage()]),
+        trace=union.TraceStudy(
+            trace=paper_trace(horizon_ms=EXPERIMENT_HORIZON_MS),
+            policies=["fcfs", "easy"], seeds=1))
+
+
+def same_value(a, b) -> bool:
+    """Integers and strings equal, floats bit for bit (NaN equal to NaN)."""
+    import math
+
+    if isinstance(a, float) or isinstance(b, float):
+        return (isinstance(a, float) and isinstance(b, float)
+                and (a == b or (math.isnan(a) and math.isnan(b))))
+    return a == b
+
+
+def same_scenario_report(got, want, what):
+    """A facade cell's report against a direct run's: virtual time,
+    drops, and per app every latency figure (count, average, minimum,
+    maximum, quartiles) and the communication times."""
+    pairs = [("virtual_time_ms", got["virtual_time_ms"],
+              want["virtual_time_ms"]),
+             ("dropped", got["dropped"], want["dropped"])]
+    for part in ("latency", "comm_time"):
+        need(got[part].keys() == want[part].keys(),
+             f"{what}: {part} apps differ")
+        for app, w in want[part].items():
+            g = got[part][app]
+            need(g.keys() == w.keys(), f"{what}: {part}.{app} keys differ")
+            pairs += [(f"{part}.{app}.{k}", g[k], w[k]) for k in w]
+    bad = [f"{k}: {a!r} != {b!r}" for k, a, b in pairs
+           if not same_value(a, b)]
+    need(not bad, f"{what}: {bad}")
+    return len(pairs)
+
+
+def phase_experiment(dev):
+    """``paper_1d_experiment``: the experiment facade
+    (``repro_torch.union.run``) over ``paper_experiment`` on the card,
+    against a store in a temporary directory, with the launch counts set
+    to 0 just before and read just after. Each healthy scenario cell's
+    report equals its member run alone through ``run_scenario``; each
+    trace cell's per-job records equal ``_run_trace_impl``'s for that
+    cell alone; the drain tick's and link demand's launches equal the
+    ticks replayed; a second ``run`` against the store executes 0 cells
+    and returns equal cells, as does ``Results.save`` then ``load``.
+    Prints the study's wall s by node kind, member-virtual-ms per wall s
+    of the batched node, jobs per wall s of the trace node, the host
+    share outside the replays, engine-cache hits and builds, peak device
+    memory, ``Plan.describe()``, ``format_results`` and the outage's
+    interference matrix against the healthy cells."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import union
+    from repro_torch.kernels import ops
+    from repro_torch.sched import scheduler as S
+    from repro_torch.union import manager as MGR
+    from repro_torch.union import planner as PLN
+    from repro_torch.union.report import interference_matrix
+
+    t0 = time.perf_counter()
+    exp = paper_experiment()
+    p0 = time.perf_counter()
+    plan = PLN.plan(exp)
+    plan_s = time.perf_counter() - p0
+    need([(n.kind, len(n.cells)) for n in plan.nodes]
+         == [("batched", 8), ("windowed_batch", 4)],
+         f"paper_1d_experiment: plan {plan.describe()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        res = union.run(exp, plan=plan, store=store, device=dev)
+        torch.cuda.synchronize()
+        counted = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+
+        def dumps(cells):
+            return [json.dumps(c.to_dict(), sort_keys=True, default=float)
+                    for c in cells]
+
+        need(res.telemetry["store"]["misses"] == 12,
+             f"paper_1d_experiment: store {res.telemetry['store']}")
+        r0 = time.perf_counter()
+        again = union.run(exp, store=store, device=dev)
+        rerun_s = time.perf_counter() - r0
+        need(again.telemetry["store"]["hits"] == 12
+             and again.telemetry["store"]["misses"] == 0
+             and again.engine_cache["builds"] == 0,
+             f"paper_1d_experiment: the rerun executed cells: "
+             f"{again.telemetry['store']}, {again.engine_cache}")
+        need(dumps(again.cells) == dumps(res.cells),
+             "paper_1d_experiment: the store's cells differ")
+        path = os.path.join(tmp, "results.json")
+        res.save(path)
+        need(dumps(union.Results.load(path).cells) == dumps(res.cells),
+             "paper_1d_experiment: Results.save/load changed the cells")
+
+    eng_tot = res.telemetry["engine"]
+    for kind, tot in eng_tot.items():
+        for k in ("drain_tick", "link_demand"):
+            need(tot["launches"].get(k, 0) == tot["ticks"] > 0,
+                 f"paper_1d_experiment: {kind}: {k} launched "
+                 f"{tot['launches'].get(k, 0)} times for {tot['ticks']} "
+                 "ticks replayed")
+    for k in ("drain_tick", "link_demand"):
+        need(counted[k] > 0, f"paper_1d_experiment: no {k} launch counted")
+
+    # the healthy cells against their members run alone
+    sc = exp.scenarios[0]
+    healthy = [c for c in res.scenario_cells if c.failure == "healthy"]
+    need(len(healthy) == 4, "paper_1d_experiment: 4 healthy cells")
+    a0 = time.perf_counter()
+    compared = 0
+    for c in healthy:
+        alone = MGR.run_scenario(dataclasses.replace(sc, placement=c.placement),
+                                 seed=c.seed, device=dev)
+        compared += same_scenario_report(
+            c.report, alone,
+            f"paper_1d_experiment: cell {c.key} vs its member alone")
+    # the trace cells against each cell alone
+    tr = exp.trace.trace
+    engine = S.build_sched_engine(tr, device=dev)
+    failures = {f.name: f for f in exp.grid.failures}
+    for c in res.trace_cells:
+        fl = failures[c.failure]
+        alone = S._run_trace_impl(
+            tr, policy=c.policy, seed=c.seed, engine=engine,
+            failure=None if fl.is_healthy else fl)
+        rows = [r.to_dict(exp.trace.tau_us) for r in alone.records]
+        need(c.report["windows"] == alone.windows
+             and len(rows) == len(c.report["per_job"])
+             and all(g.keys() == w.keys()
+                     and all(same_value(g[k], w[k]) for k in w)
+                     for g, w in zip(c.report["per_job"], rows)),
+             f"paper_1d_experiment: trace cell {c.key}'s records differ "
+             "from the cell alone")
+    alone_s = time.perf_counter() - a0
+
+    kinds = res.telemetry["node_kinds"]
+    b_wall = kinds["batched"]["wall_s"]
+    t_wall = kinds["windowed_batch"]["wall_s"]
+    groups = res.summary["scenario_studies"]
+    matrix = interference_matrix(
+        {p: groups[f"workload1/1d/{p}/ADP/outage"] for p in ("RN", "RG")},
+        {p: {app: groups[f"workload1/1d/{p}/ADP"]
+             for app in groups[f"workload1/1d/{p}/ADP"]["apps"]}
+         for p in ("RN", "RG")})
+    emit(dict(
+        phase="paper_1d_experiment", seconds=time.perf_counter() - t0,
+        horizon_ms=EXPERIMENT_HORIZON_MS, plan_s=plan_s,
+        study_wall_s=res.wall_s, node_kinds=kinds,
+        batched_member_virtual_ms_per_wall_s=sum(
+            c.report["virtual_time_ms"] for c in res.scenario_cells) / b_wall,
+        trace_jobs_per_wall_s=sum(
+            c.report["jobs"] for c in res.trace_cells) / t_wall,
+        trace_completed=[c.report["completed"] for c in res.trace_cells],
+        engine={kind: dict(
+            tot, device_ms_per_tick=tot["replay_device_ms"]
+            / max(tot["ticks"], 1),
+            host_share_outside_replays=1.0 - tot["replay_device_ms"] / 1e3
+            / kinds[kind]["wall_s"]) for kind, tot in eng_tot.items()},
+        study_host_share_outside_replays=1.0 - sum(
+            t["replay_device_ms"] for t in eng_tot.values()) / 1e3
+        / res.wall_s,
+        engine_cache=res.engine_cache, counted_at_capture=counted,
+        peak_device_mib=peak, rerun_from_store_s=rerun_s,
+        healthy_cells_equal_alone=len(healthy),
+        healthy_values_compared=compared,
+        trace_cells_equal_alone=len(res.trace_cells), alone_runs_s=alone_s,
+        describe=plan.describe().splitlines(),
+        format_results=union.format_results(res).splitlines(),
+        outage_interference=matrix))
+    return {k: sum(t["launches"].get(k, 0) for t in eng_tot.values())
+            for k in ("drain_tick", "link_demand", "router_rate_drain")}
 
 
 # ---------------------------------------------------------------------------
@@ -1766,6 +1999,8 @@ def main() -> int:
     free_engines()
     trace_launches = phase_trace(dev)
     free_engines()
+    experiment_launches = phase_experiment(dev)
+    free_engines()
     launches2, _ = phase_paper("paper_2d", PAPER_2D, dev)
     free_engines()
     params, cfg, lm_launches = phase_lm_prefill(dev)
@@ -1782,13 +2017,16 @@ def main() -> int:
              bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
              library_ms=None,
              # the scheduler's windows on paper_1d_trace (its four runs)
-             trace_launches=trace_launches["drain_tick"]),
+             trace_launches=trace_launches["drain_tick"],
+             # the facade's run on paper_1d_experiment (both nodes)
+             experiment_launches=experiment_launches["drain_tick"]),
         dict(name="link_demand", route="cuda",
              source="src/repro_torch/kernels/csrc/link_demand.cu",
              replaces="src/repro/netsim/engine.py:805",
              tpu=None,  # the reference's jnp scatter-add, not a TPU kernel
              launches=launches1["link_demand"],
              trace_launches=trace_launches["link_demand"],
+             experiment_launches=experiment_launches["link_demand"],
              max_abs_err=max([r["max_abs_err"] for r in dem_rows]
                              + [launches1["link_demand_max_abs_err"]]),
              ms=dem["kernel_ms"], plain_ms=dem["plain_ms"],
@@ -1811,6 +2049,7 @@ def main() -> int:
              launches=launches1["router_rate_drain"]
              + launches2["router_rate_drain"]
              + lm_launches["router_rate_drain"],
+             experiment_launches=experiment_launches["router_rate_drain"],
              max_abs_err=max(r["max_abs_err"] for r in rtr),
              ms=rtr[0]["kernel_ms"], plain_ms=rtr[0]["plain_ms"],
              bound_ms=rtr[0]["bound_ms"], bound_by=rtr[0]["bound_by"],

@@ -172,3 +172,11 @@ def build_skeleton(name: str, scale: str = "paper", overrides: Optional[Dict] = 
     ov.update(overrides or {})
     return translate_source(src, f"{name}_{scale}", ranks, ov)
 
+
+def build_application(name: str, scale: str = "paper", overrides: Optional[Dict] = None):
+    """The 'full application' reference run for validation (§V)."""
+    from repro_torch.core.interp import run_source
+
+    src, ranks, ov = get_source(name, scale)
+    ov.update(overrides or {})
+    return run_source(src, name, ranks, ov)

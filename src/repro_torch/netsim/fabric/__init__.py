@@ -80,6 +80,13 @@ def get_fabric(name: str, scale: str = "small",
     return builder(net)
 
 
+def fabric_key(topo: Fabric) -> Tuple:
+    """The fabric's engine-cache identity (family name + defining
+    parameters). Two fabrics never share a key, so engines compiled for
+    identical capacity envelopes on different fabrics never collide."""
+    return topo.cache_key()
+
+
 def routing_tables(topo: Fabric, device):
     """``(T, route_fn)`` — the fabric's gather tables on ``device`` and its
     batched router, the engine's one dispatch point."""
@@ -91,5 +98,5 @@ __all__ = [
     "Dragonfly", "build_dragonfly", "dragonfly_1d_paper",
     "dragonfly_1d_small", "dragonfly_2d_paper", "dragonfly_2d_small",
     "BUILDERS", "NOT_PORTED", "fabric_names", "scale_names", "check_ported",
-    "get_fabric", "routing_tables",
+    "get_fabric", "fabric_key", "routing_tables",
 ]

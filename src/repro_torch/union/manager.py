@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -44,17 +44,25 @@ DEFAULT_POOL = {"small": 8192, "paper": 65536}
 def build_job_skeleton(job: ScenarioJob, scale: str):
     """One ScenarioJob -> a registered SkeletonProgram.
 
-    Two app sources so far: an inline DSL ``source`` or a
-    `workloads.SPECS` name. ``hlo:`` dry-run records are not ported yet.
+    Three app sources: an inline DSL ``source``, an hlo2skeleton dry-run
+    record (``hlo:<arch>:<shape>[:<mesh>]``), or a `workloads.SPECS` name.
     """
     if job.source is not None:
         return translate_source(
             job.source, f"{job.app}_{job.ranks}", job.ranks, job.overrides
         )
     if job.app.startswith("hlo:"):
-        raise NotImplementedError(
-            f"app {job.app!r}: hlo2skeleton records are not yet ported to "
-            "repro_torch")
+        from repro_torch.core.hlo2skeleton import build_ml_skeleton
+
+        parts = job.app.split(":")
+        if len(parts) not in (3, 4):
+            raise ValueError(f"bad hlo app spec {job.app!r}; want hlo:<arch>:<shape>[:<mesh>]")
+        arch, shape = parts[1], parts[2]
+        mesh = parts[3] if len(parts) == 4 else "single"
+        return build_ml_skeleton(
+            arch, shape, mesh=mesh, n_ranks=job.ranks or 256,
+            overrides=job.overrides,
+        )
     if job.ranks is None:
         return W.build_skeleton(job.app, scale, overrides=job.overrides)
     src, default_ranks, ov = W.get_source(job.app, scale)
@@ -74,6 +82,10 @@ class ResolvedScenario:
     pool_size: int
     horizon_us: float
     placement_seed: int
+
+    def placements(self, seed: int) -> List[np.ndarray]:
+        """Per-member placements: same scenario shape, a fresh draw."""
+        return place_jobs(self.topo, self.job_sizes, self.scenario.placement, seed=seed)
 
     @property
     def start_us(self) -> List[float]:
@@ -184,10 +196,17 @@ def bind_jobs(eng: Engine, rs: ResolvedScenario) -> Engine:
 
 
 def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,
-                  seed: int = 0, strict: bool = False) -> Dict:
-    """The standard report of one member state (on any device)."""
+                  seed: int = 0, strict: bool = False,
+                  start_us: Optional[Sequence[float]] = None,
+                  capacity: Optional[EngineCapacity] = None) -> Dict:
+    """The standard report of one member state (on any device).
+
+    ``start_us`` records this member's *actual* arrival schedule when it
+    differs from the scenario's (e.g. the experiment's arrival jitter);
+    ``capacity`` is the engine envelope the state was simulated under
+    (defaults to the scenario's own)."""
     state = state_to_numpy(state)
-    cap = rs.capacity
+    cap = capacity or rs.capacity
     names = rs.padded_app_names(cap)
     rep = MET.run_report(state, names, rs.topo, rs.net, wall_s,
                          strict=strict)
@@ -195,7 +214,8 @@ def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,
     rep["config"] = dict(
         workload=sc.name, topo=sc.topo, placement=sc.placement,
         routing=sc.routing, scale=sc.scale, seed=seed, ranks=rs.job_sizes,
-        start_us=[float(s) for s in rs.start_us],
+        start_us=[float(s) for s in (start_us if start_us is not None
+                                     else rs.start_us)],
         all_done=[
             bool(job_vm(state, ji).done.all()) for ji in range(len(rs.jobs))
         ],

@@ -3,9 +3,11 @@
 The port keeps its own copies of the DSL, the skeleton translator, the
 workloads, the dragonfly builders, the placement policies, the model
 configuration and the architecture registry, the scheduler's traces and
-queue policies, and the host-plane observability modules (spans, export,
-metrics, sim-time timelines). Built from the same inputs, each must give
-what the JAX package's module gives.
+queue policies, the host-plane observability modules (spans, export,
+metrics, sim-time timelines), the experiment reports (summaries, the
+interference summaries, formatting), ``fabric_key``, the §V validation
+interpreter and hlo2skeleton's DSL emitter. Built from the same inputs,
+each must give what the JAX package's module gives.
 """
 import dataclasses
 
@@ -305,3 +307,139 @@ def test_sim_timelines_match():
     w = ref_timeline.sim_chrome_trace([("cell", want)])
     assert g["traceEvents"] == w["traceEvents"]
     assert g["otherData"]["time_domain"] == w["otherData"]["time_domain"]
+
+
+# ---------------------------------------------------------------------------
+# the experiment facade's jax-free pieces: report, fabric_key, the §V
+# interpreter and hlo2skeleton
+# ---------------------------------------------------------------------------
+
+def _results_dict(seed=0):
+    """A seeded schema-v4 Results dict: scenario cells of two grid groups
+    (one degraded, one histogrammed), trace cells under two policies."""
+    rng = np.random.default_rng(seed)
+
+    def spread():
+        a = rng.uniform(1.0, 100.0, 3)
+        return dict(mean=float(a.mean()), std=float(a.std()),
+                    min=float(a.min()), max=float(a.max()),
+                    rel_spread=float((a.max() - a.min()) / a.mean()))
+
+    cells = []
+    for failure in ("healthy", "links:0.05"):
+        for m in range(3):
+            rep = dict(
+                virtual_time_ms=float(rng.uniform(1, 50)),
+                dropped=int(rng.integers(0, 2)),
+                sim_wall_s=float(rng.uniform(0.1, 2)),
+                config=dict(all_done=[bool(rng.integers(0, 2)), True]),
+                latency={app: dict(count=int(rng.integers(0, 9)),
+                                   avg_us=float(rng.uniform(1, 9)),
+                                   max_us=float(rng.uniform(9, 20)))
+                         for app in ("pp0", "ar8")},
+                comm_time={app: dict(avg_ms=float(rng.uniform(0, 1)),
+                                     max_ms=float(rng.uniform(1, 2)))
+                           for app in ("pp0", "ar8")},
+                link_utilization={lvl: dict(mean=float(rng.uniform(0, .5)),
+                                            max=float(rng.uniform(.5, 1)))
+                                  for lvl in ("local", "global")},
+            )
+            if failure == "healthy":
+                rep["latency_hist"] = dict(apps={app: dict(
+                    count=int(rng.integers(1, 9)),
+                    p50_us=float(rng.uniform(1, 5)),
+                    p99_us=float(rng.uniform(5, 9)),
+                    max_us=float(rng.uniform(9, 12)),
+                    variation=float(rng.uniform(0, 1)))
+                    for app in ("pp0", "ar8")})
+            cells.append(dict(kind="scenario", name="tiny", seed=m,
+                              placement="RN", routing="ADP", member=m,
+                              policy=None, fabric="1d", failure=failure,
+                              report=rep))
+    for seed in range(2):
+        for policy in ("fcfs", "easy"):
+            rep = dict(trace="t", policy=policy, slots=2, seed=seed,
+                       jobs=4, completed=int(rng.integers(1, 5)),
+                       horizon_hit=bool(rng.integers(0, 2)),
+                       windows=int(rng.integers(3, 9)),
+                       wall_s=float(rng.uniform(0.1, 1)),
+                       jobs_per_sec=float(rng.uniform(1, 9)),
+                       makespan_ms=float(rng.uniform(1, 9)),
+                       utilization=float(rng.uniform(0, 1)),
+                       wait_us=spread(), bounded_slowdown=spread(),
+                       runtime_ms=spread(), avg_latency_us=spread(),
+                       per_job=[])
+            cells.append(dict(kind="trace", name="t", seed=seed,
+                              placement="RN", routing="ADP", member=0,
+                              policy=policy, fabric="1d",
+                              failure="healthy", report=rep))
+    return dict(schema_version=4, experiment=dict(name="drift"),
+                wall_s=3.5, engine_cache=dict(hits=2, misses=1, builds=1),
+                summary={}, telemetry=dict(
+                    node_kinds=dict(batched=dict(nodes=1, cells=6,
+                                                 wall_s=1.5)),
+                    spans=dict(top=[["engine.run", 1200.0]],
+                               by_name={"engine.run": dict(count=1)})),
+                cells=cells)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_report_summaries_match(seed):
+    from repro.union import experiment as ref_experiment
+    from repro.union import report as ref_report
+    from repro_torch.union import experiment, report
+
+    d = _results_dict(seed)
+    got = experiment.Results.from_dict(d)
+    want = ref_experiment.Results.from_dict(d)
+    sg, sw = report.results_summary(got), ref_report.results_summary(want)
+    assert sg == sw
+    assert len(sg["scenario_studies"]) == 2 and len(sg["trace_studies"]) == 2
+    got.summary, want.summary = sg, sw
+    assert report.format_results(got) == ref_report.format_results(want)
+    base = {"pp0": sg["scenario_studies"]["tiny/1d/RN/ADP"],
+            "ar8": sg["scenario_studies"]["tiny/1d/RN/ADP"]}
+    corun = sg["scenario_studies"]["tiny/1d/RN/ADP/links:0.05"]
+    assert report.interference_summary(corun, base) == \
+        ref_report.interference_summary(corun, base)
+    by_policy = {"RN": corun, "RG": base["pp0"]}
+    baselines = {"RN": base, "RG": base}
+    assert report.interference_matrix(by_policy, baselines) == \
+        ref_report.interference_matrix(by_policy, baselines)
+    for rep in (c.report for c in got.trace_cells):
+        assert report.format_sched_summary(rep) == \
+            ref_report.format_sched_summary(rep)
+
+
+@pytest.mark.parametrize("name,scale", DRAGONFLIES)
+def test_fabric_key_matches(name, scale):
+    from repro.netsim.fabric import fabric_key as ref_fabric_key
+    from repro_torch.netsim.fabric import fabric_key
+
+    assert fabric_key(get_fabric(name, scale)) == \
+        ref_fabric_key(ref_get_fabric(name, scale))
+
+
+@pytest.mark.parametrize("app", sorted(ref_workloads.SPECS))
+def test_interp_run_source_matches(app):
+    from repro.core import interp as ref_interp
+    from repro_torch.core import interp
+
+    src, ranks, ov = workloads.get_source(app, "small")
+    got = interp.run_source(src, app, ranks, ov)
+    want = ref_interp.run_source(src, app, ranks, dict(ov))
+    assert got.as_table() == want.as_table()
+    np.testing.assert_array_equal(got.bytes, want.bytes)
+    assert got.trace == want.trace
+
+
+def test_hlo2skeleton_dsl_matches():
+    from repro.core import hlo2skeleton as ref_hlo
+    from repro_torch.core import hlo2skeleton as hlo
+
+    for flops, grad, steps in ((1e12, 3e8, 4), (2e15, 4e10, 8),
+                               (3e9, 1e3, 1)):
+        kw = dict(name="m:s", flops_per_device=flops,
+                  grad_bytes_per_rank=grad, steps=steps)
+        assert hlo.ml_workload_source(**kw) == \
+            ref_hlo.ml_workload_source(**kw)

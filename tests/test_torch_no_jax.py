@@ -4,7 +4,8 @@
   loads no ``jax`` module and no ``repro`` module.
 * No source file of the port names either in an import.
 * An entry point called without ``device="cpu"`` on a machine without a
-  card raises instead of running on the CPU.
+  card raises instead of running on the CPU: the scenario and LM entry
+  points, and the experiment facade ``repro_torch.union.run``.
 """
 import os
 import pathlib
@@ -29,6 +30,9 @@ assert "repro_torch.launch.sim" in names, names
 assert "repro_torch.launch.serve" in names, names
 assert "repro_torch.sched.scheduler" in names, names
 assert "repro_torch.obs.timeline" in names, names
+for name in ("union.experiment", "union.planner", "union.report",
+             "union.store", "core.interp", "core.hlo2skeleton"):
+    assert "repro_torch." + name in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -96,6 +100,21 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     # and with the CPU asked for, the same scenario runs
     rep = manager.run_scenario(_tiny_scenario(), device="cpu")
     assert rep["latency"]["pp"]["count"] == 4
+
+
+def test_experiment_facade_raises_without_a_card(no_card, tmp_path):
+    from repro_torch import union
+
+    exp = union.Experiment(name="tiny", scenarios=[_tiny_scenario()])
+    store = tmp_path / "store"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        union.run(exp)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        union.run(exp, store=str(store))
+    assert not store.exists()  # it raised before touching the store
+    # and with the CPU asked for, the same experiment runs
+    res = union.run(exp, device="cpu")
+    assert res.cells[0].report["latency"]["pp"]["count"] == 4
 
 
 def test_lm_entry_points_raise_without_a_card(no_card):

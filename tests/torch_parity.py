@@ -80,3 +80,58 @@ def assert_bitwise_equal(a, b):
         x, y = la[name], lb[name]
         assert x.dtype == y.dtype and x.shape == y.shape, name
         assert x.tobytes() == y.tobytes(), name
+
+
+# report fields the experiment golden (tests/test_experiment.py) pins
+# with ``==``: compared exactly between the packages; other floats of a
+# report to rtol 1e-5, NaN equal to NaN
+EXACT_REPORT_FLOATS = frozenset((
+    "virtual_time_ms", "avg_us", "max_us", "max_ms", "avg_ms",
+    "makespan_ms", "utilization", "start_us", "finish_us",
+    "avg_latency_us"))
+# host wall-clock fields: they differ from run to run
+HOST_TIME_KEYS = frozenset(("sim_wall_s", "wall_s", "jobs_per_sec"))
+
+
+def report_mismatches(got, want, path="report", exact=False):
+    """Paths where a port report (a JSON-like tree) differs from a JAX
+    one: keys, lengths, integers, strings and booleans exactly; floats
+    exactly under an ``EXACT_REPORT_FLOATS`` key, else to rtol 1e-5;
+    host-time keys skipped."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict):
+            return [f"{path}: {type(got).__name__} != dict"]
+        keys = set(want) - HOST_TIME_KEYS
+        if set(got) - HOST_TIME_KEYS != keys:
+            return [f"{path}: keys differ: "
+                    f"{sorted((set(got) - HOST_TIME_KEYS) ^ keys)}"]
+        return [m for k in sorted(keys, key=str) for m in report_mismatches(
+            got[k], want[k], f"{path}.{k}",
+            exact or k in EXACT_REPORT_FLOATS)]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [f"{path}: lengths differ"]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in report_mismatches(g, w, f"{path}[{i}]", exact)]
+    if isinstance(want, float) and not isinstance(got, bool) \
+            and isinstance(got, (int, float)):
+        g, w = float(got), float(want)
+        if (g == w or (np.isnan(g) and np.isnan(w))
+                or (not exact and np.isclose(g, w, rtol=RTOL, atol=0.0))):
+            return []
+        return [f"{path}: {g!r} != {w!r}"]
+    if type(got) is not type(want) or got != want:
+        return [f"{path}: {got!r} != {want!r}"]
+    return []
+
+
+def assert_cells_match(got_cells, want_cells):
+    """Port CellResults against JAX ones: the same order and grid
+    coordinates, and reports under :func:`report_mismatches`."""
+    assert [c.key for c in got_cells] == [c.key for c in want_cells]
+    for g, w in zip(got_cells, want_cells):
+        gd, wd = g.to_dict(), w.to_dict()
+        gr, wr = gd.pop("report"), wd.pop("report")
+        assert gd == wd
+        bad = report_mismatches(gr, wr, f"cell {g.key}")
+        assert not bad, bad[:10]
