@@ -99,6 +99,18 @@ its seconds, and any failure raises (non-zero exit, no result line):
    wall s, the host share outside the replays, engine-cache hits and
    builds, peak memory, the plan, ``format_results`` and the outage's
    interference matrix;
+   ``paper_fabrics``: workload1 + UR to 2 ms on the paper fat tree (k =
+   32, 8,192 hosts, route width 6) and the paper torus (11 x 12 x 16 x 4,
+   8,448 hosts, route width 21), each as in 7 (its line per fabric): the
+   drain tick's and link demand's launches equal the ticks replayed, the
+   graph run's digests equal the eager loop's, the live pool's kernels
+   against their plain versions (and both timed there), the first 64
+   eager ticks equal to the CPU path's;
+   ``union_front_doors``: the CLI's ``main(argv)`` on a three-member
+   campaign of a tiny scenario, then the Union server on ``127.0.0.1``
+   with one submission through the client and one cancellation; the
+   CLI's result file and the server's Results equal ``union.run`` of the
+   same spec; the seconds of each;
    then the paper-scale 2D dragonfly (workload3) as in 7, shorter;
 9. Mamba-2 370M at full width (48 layers, seeded random weights, float32
    weights, bfloat16 compute) through ``make_prefill_step`` on 8 requests
@@ -110,9 +122,10 @@ its seconds, and any failure raises (non-zero exit, no result line):
    tokens): served tokens, decode tokens per second; a profile of one
    decode step;
 11. the kernel summary line (each kernel's launches as read in the counted
-   windows, the simulator kernels' also on the trace's windows and the
-   facade's run, its largest error against its plain version), then the
-   result line.
+   windows, the simulator kernels' also on the trace's windows, the
+   facade's run and the two paper fabrics, with their device ms on each
+   fabric's live pool, its largest error against its plain version), then
+   the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``); the card
 tests' input generators come from ``tests/test_torch_*_cuda.py``, which
@@ -137,8 +150,15 @@ PAPER_1D = dict(workload="workload1", topo="1d", scale="paper",
                 horizon_ms=10.0)
 PAPER_2D = dict(workload="workload3", topo="2d", scale="paper",
                 horizon_ms=6.0)
+# workload1 + UR on the other two paper fabrics (route widths 6 and 21)
+PAPER_FABRICS = (
+    dict(workload="workload1", topo="fat_tree", scale="paper",
+         horizon_ms=2.0),
+    dict(workload="workload1", topo="torus", scale="paper", horizon_ms=2.0),
+)
 # ticks of each paper run compared between the card and the CPU path
 CARD_VS_CPU_TICKS = 128
+FABRIC_CARD_VS_CPU_TICKS = 64
 KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan")
 # the SSD kernel's tolerance against its plain version: an output sums
 # Q * ds = 16,384 float32 products whose partial sums are as large as the
@@ -731,7 +751,7 @@ def phase_goldens(dev):
         runs[case] = dict(ticks=stats.ticks, graph_ticks=stats.graph_ticks,
                           replays=stats.replays)
     sc, seed = golden_scenarios()["equiv-mix"]
-    rep = MGR.run_scenario(sc, seed=seed, device=dev)
+    rep = MGR._run_member(sc, seed=seed, device=dev)
     g = golden["equiv-mix"]
     need(rep["virtual_time_ms"] == g["report_virtual_time_ms"],
          "report virtual_time_ms")
@@ -1014,12 +1034,13 @@ PROFILE_AT = 11  # the eager 20-tick profile starts here (inside one chunk)
 CHUNK = 64  # ticks between liveness reads, as ``run``'s default
 
 
-def phase_paper(name, cfg, dev):
+def phase_paper(name, cfg, dev, phase=None, cpu_ticks=CARD_VS_CPU_TICKS):
     """The paper run on ``cfg``: counted through ``run_sim`` (graph
     replays), then an eager loop of ``tick`` from the same seed (sampled
     ticks, the 20-tick profile, liveness every 64 ticks as ``run``) held
     to a graph ``run`` by digests, the graph replays profiled over the last
-    chunk, and the first 128 eager ticks held to the CPU path."""
+    chunk, and the first ``cpu_ticks`` eager ticks held to the CPU path.
+    Emits its line as ``phase`` (default ``name``)."""
     import dataclasses
 
     import numpy as np
@@ -1028,7 +1049,8 @@ def phase_paper(name, cfg, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.drain_tick import (
         drain_tick_cuda, drain_tick_plain)
-    from repro_torch.kernels.link_demand import link_demand_cuda
+    from repro_torch.kernels.link_demand import (
+        link_demand_cuda, link_demand_plain)
     from repro_torch.kernels.router_tick import (
         router_rate_drain_cuda, router_rate_drain_plain)
     from repro_torch.launch.sim import run_sim
@@ -1127,7 +1149,16 @@ def phase_paper(name, cfg, dev):
                 link_demand=device_ms(
                     lambda: link_demand_cuda(*pool, L)),
                 router_rate_drain=device_ms(
-                    lambda: router_rate_drain_cuda(*rargs, dt)))))
+                    lambda: router_rate_drain_cuda(*rargs, dt))),
+            # the plain versions on the same pool, on the card, at the
+            # first sampled tick (a plain drain tick takes about 0.1 s)
+            plain_live_ms=None if sampled else dict(
+                drain_tick=time_ms(
+                    lambda: drain_tick_plain(*args, n_apps, R), reps=3,
+                    warmup=1),
+                link_demand=time_ms(
+                    lambda: link_demand_plain(*pool, L), reps=3,
+                    warmup=1))))
     eager = st
     need(i == ticks, f"{name}: the eager loop ran {i} ticks, the graph run "
          f"{ticks}")
@@ -1156,7 +1187,7 @@ def phase_paper(name, cfg, dev):
         device_busy_share=busy_us / wall_us,
         wrappers=wrapper_kernels(rows, n_prof, f"{name}: graph profile"),
         device_kernels_per_tick=sum(r[1] for r in rows) / n_prof)
-    against_cpu = card_vs_cpu(name, rs, eng)
+    against_cpu = card_vs_cpu(name, rs, eng, n=cpu_ticks)
     lat_cnt = trajectory(eager)["lat_cnt"].tolist()
     need(float(eager.t) / 1000.0 == rep["virtual_time_ms"],
          f"{name}: the counted run ended at another time")
@@ -1165,10 +1196,11 @@ def phase_paper(name, cfg, dev):
              if a is not None],
          f"{name}: the counted run delivered other counts")
     virtual_ms = rep["virtual_time_ms"]
-    emit(dict(phase=name, seconds=time.perf_counter() - t0,
+    emit(dict(phase=phase or name, seconds=time.perf_counter() - t0,
               workload=cfg["workload"], topo=cfg["topo"],
               horizon_ms=cfg["horizon_ms"], nodes=rs.topo.n_nodes,
-              links=rs.topo.n_links, pool=rs.pool_size,
+              links=rs.topo.n_links, route_width=rs.topo.route_width,
+              pool=rs.pool_size,
               virtual_time_ms=virtual_ms, wall_s=wall,
               virtual_ms_per_wall_s=virtual_ms / wall,
               ticks=ticks, graph_ticks=run["graph_ticks"],
@@ -1204,6 +1236,10 @@ def phase_paper(name, cfg, dev):
                 router_live=dict(
                     tick=sampled[0]["tick"], active=sampled[0]["active"],
                     ms=sampled[0]["live_ms"]["router_rate_drain"]),
+                live=dict(tick=sampled[0]["tick"],
+                          active=sampled[0]["active"],
+                          ms=sampled[0]["live_ms"],
+                          plain_ms=sampled[0]["plain_live_ms"]),
                 link_demand_max_abs_err=max(
                     s["route_parity"]["demand_max_abs_err"]
                     for s in sampled)), delivered
@@ -1495,12 +1531,12 @@ def phase_trace(dev):
     ops.reset_launches()
     runs, rows = {}, {}
     for pol in ("fcfs", "easy"):
-        runs[pol], (rows[pol],) = timed(lambda: S.run_trace(
+        runs[pol], (rows[pol],) = timed(lambda: S._run_trace_impl(
             tr, policy=pol, seed=0, engine=engine, collect_state=True))
     batch, brows = timed(lambda: S.run_trace_batch(
         [(tr, "fcfs", 0), (tr, "easy", 0), (tr, "easy", 0, trace_outage())],
         engine=engine, collect_state=True))
-    runs["outage"], (rows["outage"],) = timed(lambda: S.run_trace(
+    runs["outage"], (rows["outage"],) = timed(lambda: S._run_trace_impl(
         tr, policy="easy", seed=0, engine=engine, collect_state=True,
         failure=trace_outage()))
     counted = dict(ops.LAUNCHES)
@@ -1733,7 +1769,7 @@ def phase_experiment(dev):
     a0 = time.perf_counter()
     compared = 0
     for c in healthy:
-        alone = MGR.run_scenario(dataclasses.replace(sc, placement=c.placement),
+        alone = MGR._run_member(dataclasses.replace(sc, placement=c.placement),
                                  seed=c.seed, device=dev)
         compared += same_scenario_report(
             c.report, alone,
@@ -1793,6 +1829,136 @@ def phase_experiment(dev):
         outage_interference=matrix))
     return {k: sum(t["launches"].get(k, 0) for t in eng_tot.values())
             for k in ("drain_tick", "link_demand", "router_rate_drain")}
+
+
+def phase_fabrics(dev):
+    """``paper_fabrics``: workload1 + UR at the paper scale on the fat tree
+    (k = 32, 8,192 hosts, route width 6) and the torus (11 x 12 x 16 x 4,
+    8,448 hosts, route width 21), each as ``phase_paper`` runs the
+    dragonflies (counted through ``run_sim``, the eager loop's digests
+    against a graph run, the live pool's kernels against their plain
+    versions), with the first 64 eager ticks held to the CPU path.
+    Returns each fabric's drain-tick and link-demand launches."""
+    out = {}
+    for cfg in PAPER_FABRICS:
+        launches, delivered = phase_paper(
+            f"paper_fabrics/{cfg['topo']}", cfg, dev, phase="paper_fabrics",
+            cpu_ticks=FABRIC_CARD_VS_CPU_TICKS)
+        free_engines()
+        need(sum(delivered.values()) > 0,
+             f"paper_fabrics/{cfg['topo']}: nothing delivered")
+        out[cfg["topo"]] = launches
+    return out
+
+
+TINY_SCENARIO = dict(
+    name="tiny", placement="RN", tick_us=2.0, horizon_ms=50.0,
+    pool_size=256,
+    jobs=[dict(app="pp", ranks=2, source=(
+        "For 4 repetitions { task 0 sends a 1024 byte message to task 1 "
+        "then task 1 sends a 1024 byte message to task 0 }"))])
+
+
+def phase_front_doors(dev):
+    """``union_front_doors``: the CLI (``repro_torch.union.cli.main``) on
+    a three-member campaign of the tiny scenario, and the Union server on
+    ``127.0.0.1`` (an ephemeral port, its worker on the card) with one
+    submission of that experiment through the client and one cancellation
+    (a second submission held at its first node, cancelled there). The
+    CLI's result file and the server's Results must equal ``union.run``
+    of the same spec, cell for cell (``same_scenario_report``); the
+    cancelled job ends ``cancelled`` with no cell run and no Results."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+
+    from repro_torch import union
+    from repro_torch.union import cli as CLI
+    from repro_torch.union.client import ServeClient, ServeError
+    from repro_torch.union.serve import make_server
+
+    t0 = time.perf_counter()
+    sc = union.Scenario.from_dict(TINY_SCENARIO)
+    exp = union.Experiment(name="tiny", scenarios=[sc], members=3)
+    want = union.run(exp, device=dev)
+
+    def same_cells(got, what):
+        need(len(got.cells) == len(want.cells), f"{what}: cell counts")
+        for g, w in zip(got.cells, want.cells):
+            need(g.key == w.key, f"{what}: cell {g.key} != {w.key}")
+            same_scenario_report(g.report, w.report, f"{what} {g.key}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiny.json")
+        with open(path, "w") as f:
+            json.dump(TINY_SCENARIO, f)
+        out_dir = os.path.join(tmp, "out")
+        printed = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            CLI.main(["--scenario", path, "--members", "3", "--out",
+                      out_dir, "--device", str(dev)])
+        cli_s = time.perf_counter() - t1
+        files = os.listdir(out_dir)
+        need(files == ["tiny__1d__RN__ADP__small__m3_s0.json"],
+             f"CLI wrote {files}")
+        same_cells(union.Results.load(os.path.join(out_dir, files[0])),
+                   "CLI")
+
+    class Gate:
+        """Holds the worker at the first node of a job named
+        ``cancel-me`` until released."""
+
+        def __init__(self):
+            self.paused = threading.Event()
+            self.release = threading.Event()
+
+        def __call__(self, job):
+            if job.experiment.name == "cancel-me":
+                self.paused.set()
+                need(self.release.wait(timeout=120), "gate never released")
+
+    gate = Gate()
+    srv = make_server(host="127.0.0.1", port=0, node_hook=gate, device=dev)
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    try:
+        c = ServeClient(f"http://127.0.0.1:{srv.port}")
+        t1 = time.perf_counter()
+        job = c.submit(exp)
+        st = c.wait(job, timeout=300, poll_s=0.05)
+        need(st["status"] == "done", f"server job ended {st}")
+        same_cells(c.results(job), "server")
+        serve_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        held = c.submit(union.Experiment(name="cancel-me", scenarios=[sc],
+                                         members=3))
+        need(gate.paused.wait(timeout=120), "the worker never took the job")
+        need(c.status(held)["status"] == "running", "held job not running")
+        c.cancel(held)
+        gate.release.set()
+        st2 = c.wait(held, timeout=120, poll_s=0.05)
+        need(st2["status"] == "cancelled" and st2["cells_completed"] == 0,
+             f"cancelled job ended {st2}")
+        try:
+            c.results(held)
+            need(False, "a cancelled job returned Results")
+        except ServeError as e:
+            need(e.status == 409, f"results of a cancelled job: {e}")
+        cancel_s = time.perf_counter() - t1
+        health = c.health()
+    finally:
+        gate.release.set()
+        srv.close()
+        serving.join(timeout=30)
+    need(not serving.is_alive(), "the server thread did not stop")
+    emit(dict(phase="union_front_doors", seconds=time.perf_counter() - t0,
+              cells=len(want.cells), cli_s=cli_s,
+              cli_printed=printed.getvalue().splitlines(),
+              server_submit_to_results_s=serve_s, server_cancel_s=cancel_s,
+              server_jobs=health["jobs"], engine_cache=health["engine_cache"],
+              equal_to_union_run=True))
 
 
 # ---------------------------------------------------------------------------
@@ -1951,6 +2117,15 @@ def free_engines() -> None:
     torch.cuda.empty_cache()
 
 
+def fabric_live(fabric_launches, kernel):
+    """A simulator kernel's device ms a call and its plain version's on
+    each paper fabric's live pool (first sampled tick)."""
+    return {f: dict(tick=v["live"]["tick"], active=v["live"]["active"],
+                    ms=v["live"]["ms"][kernel],
+                    plain_ms=v["live"]["plain_ms"][kernel])
+            for f, v in fabric_launches.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2001,6 +2176,9 @@ def main() -> int:
     free_engines()
     experiment_launches = phase_experiment(dev)
     free_engines()
+    fabric_launches = phase_fabrics(dev)
+    phase_front_doors(dev)
+    free_engines()
     launches2, _ = phase_paper("paper_2d", PAPER_2D, dev)
     free_engines()
     params, cfg, lm_launches = phase_lm_prefill(dev)
@@ -2019,7 +2197,11 @@ def main() -> int:
              # the scheduler's windows on paper_1d_trace (its four runs)
              trace_launches=trace_launches["drain_tick"],
              # the facade's run on paper_1d_experiment (both nodes)
-             experiment_launches=experiment_launches["drain_tick"]),
+             experiment_launches=experiment_launches["drain_tick"],
+             # paper_fabrics' counted runs (route widths 6 and 21)
+             fabric_launches={f: v["drain_tick"]
+                              for f, v in fabric_launches.items()},
+             fabric_live=fabric_live(fabric_launches, "drain_tick")),
         dict(name="link_demand", route="cuda",
              source="src/repro_torch/kernels/csrc/link_demand.cu",
              replaces="src/repro/netsim/engine.py:805",
@@ -2027,8 +2209,13 @@ def main() -> int:
              launches=launches1["link_demand"],
              trace_launches=trace_launches["link_demand"],
              experiment_launches=experiment_launches["link_demand"],
+             fabric_launches={f: v["link_demand"]
+                              for f, v in fabric_launches.items()},
+             fabric_live=fabric_live(fabric_launches, "link_demand"),
              max_abs_err=max([r["max_abs_err"] for r in dem_rows]
-                             + [launches1["link_demand_max_abs_err"]]),
+                             + [launches1["link_demand_max_abs_err"]]
+                             + [v["link_demand_max_abs_err"]
+                                for v in fabric_launches.values()]),
              ms=dem["kernel_ms"], plain_ms=dem["plain_ms"],
              bound_ms=dem["bound_ms"], bound_by=dem["bound_by"],
              library_ms=dem["library_ms"]),

@@ -325,8 +325,12 @@ extern "C" int drain_tick_launch(
   const int table_bytes = ((AR * (int)sizeof(float) + 15) / 16) * 16;
   if (table_bytes + rows_bytes <= kMaxSharedBytes) {
     const int smem = table_bytes + rows_bytes;
-    static int smem_allowed = sim_rows::kMaxStageBytes;  // set before any
-    if (smem > smem_allowed) {                          // capture needs it
+    // the opt-in limit, raised at the first call and at each larger one
+    // (the hot-link slots' static shared memory counts against the 48 KB
+    // a block gets without it); a first call inside a graph capture sets
+    // it there
+    static int smem_allowed = 0;
+    if (smem > smem_allowed) {
       err = cudaFuncSetAttribute(drain_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);

@@ -488,7 +488,11 @@ extern "C" int link_demand_launch(const int32_t* routes, const uint8_t* active,
   const int nw = member_words * 4 <= kFoldBitmapBytes ? (int)member_words : 0;
   const int words = nw > kBlockRun ? nw : kBlockRun;
   const int fold_smem = words * (int)sizeof(int32_t);
-  static int fold_smem_allowed = 48 * 1024;  // set before a capture needs it
+  // the opt-in limit of dynamic shared memory, raised at the first call
+  // and at each larger one: the kernel's static shared memory counts
+  // against the 48 KB a block gets without it, so a dynamic size at or just
+  // under 48 KB (the paper fat tree's 12,288-word bitmap) needs it too
+  static int fold_smem_allowed = 0;
   if (fold_smem > fold_smem_allowed) {
     err = cudaFuncSetAttribute(link_fold_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

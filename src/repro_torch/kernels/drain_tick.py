@@ -98,8 +98,12 @@ def drain_tick_cuda(routes, bytes_rem, active, job, min_arrive, t, dt,
     dev = routes.device
     if dev.type != "cuda":
         raise ValueError(f"drain_tick_cuda needs CUDA tensors, got {dev}")
-    launch, error_string = _entry_points()
     B, M, K = routes.shape
+    if K > 32:
+        # the kernel's per-block sums of a hot link's adds cover route
+        # slots 0-31 (one bit a slot in a 32-bit mask)
+        raise ValueError(f"drain_tick_cuda: route width {K} > 32")
+    launch, error_string = _entry_points()
     Lp = bw_eff.shape[-1]
     R = int(n_routers)
     A = int(n_apps)

@@ -17,7 +17,7 @@ import logging
 import os
 from typing import Dict, Optional
 
-from repro_torch.union.manager import run_scenario
+from repro_torch.union.manager import _run_member
 from repro_torch.union.scenario import MIXES, MIX_HAS_UR, UR_RANKS, mix_scenario  # noqa: F401 (re-export)
 
 log = logging.getLogger("repro_torch")
@@ -37,13 +37,16 @@ def run_sim(
     stagger_us: float = 0.0,
     device=None,
 ) -> Dict:
-    """One simulation of a builtin mix on ``device`` (CUDA by default)."""
+    """One simulation of a builtin mix on ``device`` (CUDA by default):
+    the report of the facade's one-member cell, bit for bit, plus
+    ``engine_run`` (kept for compatibility, and without a warning, as the
+    JAX package's ``run_sim``; new code declares an Experiment)."""
     scenario = mix_scenario(
         workload, topo=topo_variant, scale=scale, placement=placement,
         routing=routing, iters_override=iters_override, tick_us=tick_us,
         horizon_ms=horizon_ms, pool_size=pool_size, stagger_us=stagger_us,
     )
-    return run_scenario(scenario, seed=seed, device=device)
+    return _run_member(scenario, seed=seed, device=device)
 
 
 def main(argv=None):

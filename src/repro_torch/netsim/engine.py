@@ -58,6 +58,7 @@ into one flat index.
 from __future__ import annotations
 
 import math
+import os
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -1388,10 +1389,14 @@ def build_engine(
 _ENGINE_CACHE: "OrderedDict[Tuple, Engine]" = OrderedDict()
 _ENGINE_CACHE_STATS = {"hits": 0, "misses": 0, "builds": 0, "evictions": 0}
 # LRU bound on the cache (:func:`set_engine_cache_limit`): ``None``
-# (default) is unbounded; a long-lived process caps it so that device
-# memory stays bounded. A rebuild after
+# (default, or the environment's ``REPRO_ENGINE_CACHE_MAX`` read at import)
+# is unbounded; a long-lived process (the ``repro_torch.union.serve``
+# server) caps it so that device memory stays bounded. A rebuild after
 # eviction gives the same bits: the key holds every input the engine bakes.
-_ENGINE_CACHE_MAX: Optional[int] = None
+_ENGINE_CACHE_MAX: Optional[int] = (
+    int(os.environ["REPRO_ENGINE_CACHE_MAX"])
+    if os.environ.get("REPRO_ENGINE_CACHE_MAX") else None
+)
 
 
 def _cache_gauges() -> None:

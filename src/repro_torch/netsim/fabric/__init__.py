@@ -1,18 +1,20 @@
 """``repro_torch.netsim.fabric`` — the port's fabric registry.
 
-The registry maps a spec-level fabric name × scale to a builder. The
-port has the dragonfly fabrics only:
+The registry maps a spec-level fabric name × scale to a builder:
 
 =========  =======================  ==========================
 name       small                    paper
 =========  =======================  ==========================
 ``1d``     9g × 8r × 7n dragonfly   33g × 32r × 8n (Table II)
 ``2d``     7g × 12r × 6n dragonfly  22g × 96r × 4n (Table II)
+``fat_tree``  k=12, 7 hosts/edge    k=32 (8192 hosts)
+``torus``  4×4×4 × 8 nodes          11×12×16 × 4 nodes
 =========  =======================  ==========================
 
-The JAX package's fat-tree and torus fabrics are not ported yet:
-:data:`NOT_PORTED` names them so that a scenario asking for one fails
-validation with a message that says so.
+``get_fabric(name, scale)`` builds one; ``fabric_names()`` is the legal
+spec vocabulary (validation error messages list it); ``fabric_key(t)``
+is the engine-cache identity. See :mod:`repro_torch.netsim.fabric.base`
+for the protocol.
 """
 from __future__ import annotations
 
@@ -28,16 +30,29 @@ from repro_torch.netsim.fabric.dragonfly import (
     dragonfly_2d_paper,
     dragonfly_2d_small,
 )
+from repro_torch.netsim.fabric.fat_tree import (
+    FatTree,
+    build_fat_tree,
+    fat_tree_paper,
+    fat_tree_small,
+)
+from repro_torch.netsim.fabric.torus import (
+    Torus,
+    build_torus,
+    torus_paper,
+    torus_small,
+)
 
 BUILDERS = {
     ("1d", "paper"): dragonfly_1d_paper,
     ("2d", "paper"): dragonfly_2d_paper,
     ("1d", "small"): dragonfly_1d_small,
     ("2d", "small"): dragonfly_2d_small,
+    ("fat_tree", "paper"): fat_tree_paper,
+    ("fat_tree", "small"): fat_tree_small,
+    ("torus", "paper"): torus_paper,
+    ("torus", "small"): torus_small,
 }
-
-# fabrics of the JAX package that the port does not build yet
-NOT_PORTED = ("fat_tree", "torus")
 
 
 def fabric_names() -> Tuple[str, ...]:
@@ -57,19 +72,9 @@ def scale_names() -> Tuple[str, ...]:
     return tuple(out)
 
 
-def check_ported(name: str) -> None:
-    """Raise ``ValueError`` for a fabric the port does not build yet."""
-    if name in NOT_PORTED:
-        raise ValueError(
-            f"fabric {name!r} is not yet ported to repro_torch; ported "
-            f"fabrics: {sorted(fabric_names())}"
-        )
-
-
 def get_fabric(name: str, scale: str = "small",
                net: Optional[NetConfig] = None) -> Fabric:
     """Build the registered fabric ``name`` at ``scale``."""
-    check_ported(name)
     try:
         builder = BUILDERS[(name, scale)]
     except KeyError:
@@ -97,6 +102,8 @@ __all__ = [
     "Fabric", "KIND_TERM_IN", "KIND_TERM_OUT",
     "Dragonfly", "build_dragonfly", "dragonfly_1d_paper",
     "dragonfly_1d_small", "dragonfly_2d_paper", "dragonfly_2d_small",
-    "BUILDERS", "NOT_PORTED", "fabric_names", "scale_names", "check_ported",
-    "get_fabric", "fabric_key", "routing_tables",
+    "FatTree", "build_fat_tree", "fat_tree_paper", "fat_tree_small",
+    "Torus", "build_torus", "torus_paper", "torus_small",
+    "BUILDERS", "fabric_names", "scale_names", "get_fabric", "fabric_key",
+    "routing_tables",
 ]

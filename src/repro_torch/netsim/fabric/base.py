@@ -31,8 +31,10 @@ A fabric is a dense-array description of one interconnect instance:
   engine.
 
 Implementations: :mod:`repro_torch.netsim.fabric.dragonfly` (the paper's two
-systems). The registry in :mod:`repro_torch.netsim.fabric` maps spec names
-("1d", "2d") x scale ("small", "paper") to builders.
+systems), :mod:`repro_torch.netsim.fabric.fat_tree` (k-ary Clos),
+:mod:`repro_torch.netsim.fabric.torus` (3D torus). The registry in
+:mod:`repro_torch.netsim.fabric` maps spec names ("1d", "2d", "fat_tree",
+"torus") x scale ("small", "paper") to builders.
 """
 from __future__ import annotations
 

@@ -141,13 +141,16 @@ def _val_route(T: TopoArrays, src_node, dst_node, g_i, rand):
     return torch.stack([ti, l1a, l1b, gl1, l2a, l2b, gl2, l3a, l3b, to], dim=1)
 
 
-def _route_cost(T: TopoArrays, route, link_demand, offset):
+def route_cost(T, route, link_demand, offset):
     """Congestion estimate: total outstanding bytes over the route's links,
     normalized by bandwidth. ``offset`` shifts the demand gather so a
     member-batched caller can pass one flattened (B*(L+1),) demand table.
 
     The sum runs left to right over the route slots, in float32, as the
-    reference's reduction over its 10 slots does.
+    reference's reduction over a route's slots does (XLA on the CPU folds
+    a row in order; ``torch.sum`` would pair its terms). ``T`` is any
+    fabric's tables with a ``link_bw``: the torus router costs its two
+    candidate routes with it too.
     """
     valid = route >= 0
     idx = route.clamp(min=0)
@@ -186,8 +189,8 @@ def compute_routes(
         g_i = torch.where(g_i == g_d, (g_i + 1) % T.G, g_i)
         g_i = torch.where(g_i == g_s, (g_i + 1) % T.G, g_i)  # re-check after bump
         val_r = _val_route(T, src_nodes, dst_nodes, g_i, rand)
-        cost_min = _route_cost(T, min_r, link_demand, demand_offsets)
-        cost_val = _route_cost(T, val_r, link_demand, demand_offsets)
+        cost_min = route_cost(T, min_r, link_demand, demand_offsets)
+        cost_val = route_cost(T, val_r, link_demand, demand_offsets)
         inter_group = g_s != g_d
         take_val = inter_group & (cost_min > 2.0 * cost_val + 1e-6)
         routes = torch.where(take_val[:, None], val_r, min_r)

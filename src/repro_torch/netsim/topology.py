@@ -2,9 +2,9 @@
 
 The dragonfly builders (and the KIND constants the historical callers
 import from here) live in :mod:`repro_torch.netsim.fabric.dragonfly`;
-:func:`get_topology` resolves through the fabric registry, so every
-spec-level fabric name the port builds ("1d", "2d") works through the
-historical entry point.
+:func:`get_topology` resolves through the full fabric registry, so
+every spec-level fabric name ("1d", "2d", "fat_tree", "torus") works
+through the historical entry point.
 """
 from __future__ import annotations
 

@@ -546,9 +546,36 @@ def _run_trace_impl(
     )
 
 
-# the public name; the JAX package's deprecation of it points at
-# ``union.run``, which the port does not have yet
-run_trace = _run_trace_impl
+def run_trace(
+    trace: Trace,
+    policy: str = "easy",
+    slots: Optional[int] = None,
+    seed: int = 0,
+    engine=None,
+    collect_state: bool = False,
+    timeline: bool = False,
+    failure=None,
+    device=None,
+) -> SchedResult:
+    """Deprecated front door — stream one trace through the scheduler.
+
+    Shim over the facade's windowed executor: declare a
+    :class:`~repro_torch.union.experiment.TraceStudy` in an Experiment and
+    call ``union.run`` instead. Kept bit-identical for callers that drive
+    the loop directly (``engine=``/``collect_state``); see
+    :func:`_run_trace_impl` for the arguments.
+    """
+    from repro_torch.union.experiment import deprecated_entry
+
+    deprecated_entry(
+        "repro_torch.sched.run_trace",
+        "repro_torch.union.run(Experiment(trace=TraceStudy(...)))",
+    )
+    return _run_trace_impl(
+        trace, policy=policy, slots=slots, seed=seed, engine=engine,
+        collect_state=collect_state, timeline=timeline, failure=failure,
+        device=device,
+    )
 
 
 def run_trace_batch(

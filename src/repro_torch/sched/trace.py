@@ -83,15 +83,12 @@ class Trace:
     slots: int = 8  # engine envelope Jmax — concurrent job slots
 
     def validate(self) -> None:
-        from repro_torch.netsim.fabric import (
-            check_ported, fabric_names, scale_names,
-        )
+        from repro_torch.netsim.fabric import fabric_names, scale_names
 
         if not self.jobs:
             raise ValueError("trace needs at least one job")
         if self.slots < 1:
             raise ValueError("trace needs at least one job slot")
-        check_ported(self.topo)
         if self.topo not in fabric_names():
             raise ValueError(
                 f"unknown topo {self.topo!r}; valid fabrics: "

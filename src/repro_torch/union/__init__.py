@@ -23,9 +23,20 @@ bucketing), :mod:`~repro_torch.union.scenario`,
 :mod:`~repro_torch.union.manager` (resolution and single-member runs),
 :mod:`~repro_torch.union.seeds`, :mod:`~repro_torch.union.report` (the
 summary/format pipeline and the paper's interference summaries),
-:mod:`~repro_torch.union.store` (the content-hash store) and
-:mod:`~repro_torch.union.validate`. The JAX package's ensemble shims, CLI
-and server are not ported yet.
+:mod:`~repro_torch.union.store` (the content-hash store),
+:mod:`~repro_torch.union.validate`, :mod:`~repro_torch.union.ensemble`
+(the deprecated campaign front doors, shims over ``run``),
+:mod:`~repro_torch.union.cli`, and :mod:`~repro_torch.union.serve` +
+:mod:`~repro_torch.union.client` (the persistent Union server and its
+stdlib client).
+
+CLI (the JAX package's flags, plus ``--device``)::
+
+    python -m repro_torch.union --experiment my_study.json
+    python -m repro_torch.union --scenario workload1 --members 8
+    python -m repro_torch.union --trace poisson --sched fcfs easy
+    python -m repro_torch.union --list
+    python -m repro_torch.union.serve --port 8642 --store results/store
 """
 from repro_torch.union.scenario import (  # noqa: F401
     MIXES,
@@ -37,6 +48,12 @@ from repro_torch.union.scenario import (  # noqa: F401
     mix_scenario,
 )
 from repro_torch.union.manager import ResolvedScenario, resolve, run_scenario  # noqa: F401
+from repro_torch.union.ensemble import (  # noqa: F401
+    CampaignResult,
+    run_campaign,
+    run_ragged_campaign,
+    run_sched_campaign,
+)
 from repro_torch.union.experiment import (  # noqa: F401
     CellResult,
     Experiment,

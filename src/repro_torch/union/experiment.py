@@ -39,15 +39,14 @@ On the card every engine call replays captured CUDA graphs of the tick
 (:class:`~repro_torch.netsim.engine.Engine`): plain cells one stacked
 ``run``, cells with timed fault events ``run_window`` rounds with a
 per-member ``t_stop``, trace cells the scheduler's windows. A node's
-member batch runs on the run's one device. The fat-tree and torus
-fabrics are not ported yet: a grid naming them is refused when the spec
-is checked.
+member batch runs on the run's one device.
 """
 from __future__ import annotations
 
 import json
 import logging
 import time
+import warnings
 from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -150,12 +149,8 @@ class StudyGrid:
             self.failures = normalize_failures(self.failures)
 
     def validate(self) -> None:
-        from repro_torch.netsim.fabric import check_ported, fabric_names
+        from repro_torch.netsim.fabric import fabric_names
 
-        # a fabric of the JAX package that the port does not build yet is
-        # refused by name before anything else is checked
-        for f in self.fabrics or []:
-            check_ported(f)
         for p in self.placements or []:
             if p not in ("RN", "RR", "RG"):
                 raise ValueError(f"unknown placement {p!r} in grid")
@@ -223,11 +218,9 @@ class TraceStudy:
             )
         if self.source in ("poisson", "weibull") and self.jobs < 1:
             raise ValueError("trace study needs jobs >= 1")
-        from repro_torch.netsim.fabric import check_ported, fabric_names
+        from repro_torch.netsim.fabric import fabric_names
         from repro_torch.sched.queue import POLICIES
 
-        if self.topo is not None:
-            check_ported(self.topo)
         if self.topo is not None and self.topo not in fabric_names():
             raise ValueError(
                 f"unknown topo {self.topo!r}; valid fabrics: "
@@ -1116,3 +1109,12 @@ def run(experiment, plan=None, store=None, cancel=None,
         ),
     )
     return res
+
+
+def deprecated_entry(old: str, new: str) -> None:
+    """Warn once per call site that an old front door is a shim now."""
+    warnings.warn(
+        f"{old} is deprecated; use {new} (see docs/experiment.md for the "
+        "migration table)",
+        DeprecationWarning, stacklevel=3,
+    )

@@ -145,8 +145,8 @@ def resolve(scenario: Scenario, seed: int = 0) -> ResolvedScenario:
     )
 
 
-def build(rs: ResolvedScenario, device=None, probes=None,
-          hist=None) -> Engine:
+def build(rs: ResolvedScenario, device=None, probes=None, hist=None,
+          capacity: Optional[EngineCapacity] = None) -> Engine:
     """The engine for a resolved scenario on ``device`` (CUDA by default):
     an :class:`~repro_torch.netsim.engine.Engine` that unpacks as
     ``init, run, tick`` and carries ``run_window``.
@@ -154,16 +154,20 @@ def build(rs: ResolvedScenario, device=None, probes=None,
     It is the process-wide cache's engine for this scenario's envelope
     (``reserve`` included) and system config
     (:func:`~repro_torch.netsim.engine.get_engine`), bound to this
-    scenario's jobs and UR placement (:func:`bind_jobs`). ``probes`` (a
+    scenario's jobs and UR placement (:func:`bind_jobs`). ``capacity``
+    widens the envelope beyond this scenario's own needs so the same
+    engine serves other (smaller) scenarios (the ensemble's prebuilt
+    :class:`~repro_torch.union.ensemble.CampaignEngine`). ``probes`` (a
     :class:`repro_torch.obs.ProbeConfig`) and ``hist`` (a
     :class:`repro_torch.obs.HistConfig`) select the engine with the probe
     rings and the full-fidelity latency histograms compiled into its
     tick, its own cache entry.
     """
+    cap = rs.capacity if capacity is None else capacity.union(rs.capacity)
     eng = get_engine(
         rs.topo, routing=rs.scenario.routing, ur=rs.ur, net=rs.net,
         pool_size=rs.pool_size, horizon_us=rs.horizon_us,
-        capacity=rs.capacity, device=device, probes=probes, hist=hist,
+        capacity=cap, device=device, probes=probes, hist=hist,
     )
     return bind_jobs(eng, rs)
 
@@ -227,16 +231,19 @@ def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,
     return rep
 
 
-def run_scenario(scenario: Scenario, seed: int = 0, strict: bool = False,
-                 device=None) -> Dict:
+def _run_member(scenario: Scenario, seed: int = 0, strict: bool = False,
+               device=None) -> Dict:
     """Run a single scenario member on ``device`` (CUDA by default) and
-    return its report.
+    return its report: the report of the facade's one-member cell
+    (``union.run(Experiment(scenarios=[sc], members=1, base_seed=seed,
+    vmapped=False))``), bit for bit, plus ``engine_run``.
 
     ``seed`` drives both the placement draw and the engine RNG
     (``engine_seed(seed)``), as the JAX package's ``run_scenario`` does.
-    The report's ``engine_run`` says how the engine ran
+    ``engine_run`` says how the engine ran
     (:class:`~repro_torch.netsim.engine.RunStats`: ticks, liveness reads,
-    graph replays and capture times on the card).
+    graph replays and capture times on the card), which a facade cell
+    does not carry. ``launch.sim.run_sim`` runs through here.
     """
     rs = resolve(scenario, seed=seed)
     eng = build(rs, device=device)
@@ -247,3 +254,20 @@ def run_scenario(scenario: Scenario, seed: int = 0, strict: bool = False,
     rep = member_report(state, rs, wall, seed=seed, strict=strict)
     rep["engine_run"] = dataclasses.asdict(eng.last_run)
     return rep
+
+
+def run_scenario(scenario: Scenario, seed: int = 0, strict: bool = False,
+                 device=None) -> Dict:
+    """Deprecated front door — run a single scenario member.
+
+    Declare ``union.run(Experiment(scenarios=[sc], members=1))`` instead;
+    this warns and returns :func:`_run_member`'s report, which equals the
+    facade's one-member cell bit for bit (and adds ``engine_run``).
+    """
+    from repro_torch.union.experiment import deprecated_entry
+
+    deprecated_entry(
+        "repro_torch.union.run_scenario",
+        "repro_torch.union.run(Experiment(scenarios=[...], members=1))",
+    )
+    return _run_member(scenario, seed=seed, strict=strict, device=device)

@@ -110,13 +110,10 @@ class Scenario:
             for k, v in self.reserve.items():
                 if not isinstance(v, int) or v < 1:
                     raise ValueError(f"reserve[{k!r}] must be a positive int")
-        from repro_torch.netsim.fabric import (
-            check_ported, fabric_names, scale_names,
-        )
+        from repro_torch.netsim.fabric import fabric_names, scale_names
 
         if not self.jobs:
             raise ValueError("scenario needs at least one job")
-        check_ported(self.topo)
         if self.topo not in fabric_names():
             raise ValueError(
                 f"unknown topo {self.topo!r}; valid fabrics: "

@@ -13,9 +13,21 @@ atomics in run-to-run varying order, to rtol 1e-5 with NaN where the
 reference has NaN: of the plain version's, and in the hard cases (where
 one entry takes up to 300,000 equal adds, and the plain version's own
 float32 sums are up to about 1e-4 off) of the same sums taken in
-float64. The numpy input generators here are shared with
+float64. The fabrics' other route widths (K = 6 on the fat tree, 8 on
+the small torus, 21 on the paper torus) run at their fabrics' shapes:
+ragged pools, a hot link at K = 21, and the paper torus's router-window
+table (5 apps x 2,112 routers), which with the staged rows needs more
+than the 48 KB of shared memory a block gets without the opt-in
+attribute; a fresh process whose first call of that kernel is captured
+into a CUDA graph replays it right, and one whose first call needs 48 KB
+of dynamic shared memory beside the kernel's static slots launches. The
+numpy input generators here are shared with
 ``tests/test_torch_drain_tick.py`` and ``chip_smoke.py``.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -187,6 +199,117 @@ def test_kernel_matches_plain_on_hard_cases(cuda_device, case):
         torch.testing.assert_close(a.cpu().double(), b, rtol=1e-5, atol=0,
                                    equal_nan=True,
                                    msg=lambda m, name=name: f"{name}: {m}")
+
+
+# the fabrics' route widths at their shapes: (B, M, K, L, A, R, per-member
+# bandwidth rows)
+WIDTHS = {
+    "fat_tree_paper": (1, 65536, 6, 49152, 5, 1280, False),
+    "fat_tree_paper_ragged": (2, 65573, 6, 49152, 5, 1280, True),
+    "torus_small_ragged": (2, 4099, 8, 1408, 5, 64, True),
+    "torus_paper": (1, 65536, 21, 29568, 5, 2112, False),
+    "torus_paper_ragged": (3, 65573, 21, 29568, 5, 2112, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDTHS))
+def test_kernel_matches_plain_at_fabric_widths(cuda_device, case):
+    B, M, K, L, A, R, per_member = WIDTHS[case]
+    x = _inputs(B, M, K, L, A, R, 8)
+    if per_member:
+        x["bw_eff"] = _dead_link_bw(x, B, L, 9)
+    args = _args(x, cuda_device)
+    k = drain_tick_cuda(*args, A, R)
+    p = drain_tick_plain(*args, A, R)
+    torch.cuda.synchronize()
+    _assert_kernel_matches(k, p)
+
+
+@pytest.mark.cuda
+def test_hot_link_at_route_width_21(cuda_device):
+    """Nine tenths of the paper torus pool's route entries on one link
+    (its count far above the per-block summing threshold, in slots up to
+    20) and most messages of one app."""
+    B, M, K, L, A, R = 1, 65536, 21, 29568, 5, 2112
+    x = _inputs(B, M, K, L, A, R, 12)
+    rng = np.random.default_rng(13)
+    x["routes"][rng.random(x["routes"].shape) < 0.9] = 3
+    x["job"][rng.random(x["job"].shape) < 0.9] = 0
+    args = _args(x, cuda_device)
+    k = drain_tick_cuda(*args, A, R)
+    torch.cuda.synchronize()
+    for name, a, b in zip(EXACT, k, drain_tick_plain(*args, A, R)):
+        assert same_bits(a, b), name
+    for name, a, b in zip(SUMS, k[3:], float64_deltas(args, k[1], A, R)):
+        torch.testing.assert_close(a.cpu().double(), b, rtol=1e-5, atol=0,
+                                   equal_nan=True,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_route_width_above_32_is_refused(cuda_device):
+    """The kernel sums a hot link's adds per block only in route slots
+    below 32; the wrapper takes no wider route."""
+    args = _args(_inputs(1, 64, 33, 100, 2, 10, 1), cuda_device)
+    with pytest.raises(ValueError, match="route width"):
+        drain_tick_cuda(*args, 2, 10)
+
+
+# a fresh process's first call of the kernel: captured into a graph (the
+# paper torus's 63,744-byte shared table), or eager with a table and rows
+# of exactly 48 KB, to which the kernel's static shared memory adds
+FIRST_CALL = """
+import sys
+import torch
+from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
+from test_torch_drain_tick_cuda import (
+    _args, _assert_kernel_matches, _inputs, FIRST_CALL_SHAPES)
+
+dev = torch.device("cuda", 0)
+B, M, K, L, A, R = FIRST_CALL_SHAPES[sys.argv[1]]
+args = _args(_inputs(B, M, K, L, A, R, 50), dev)
+if sys.argv[1] == "captured":
+    fresh = _args(_inputs(B, M, K, L, A, R, 51), dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # the process's first call
+        got = drain_tick_cuda(*args, A, R)
+    for dst, src in zip(args, fresh):
+        if torch.is_tensor(dst):
+            dst.copy_(src)
+    graph.replay()
+else:
+    got = drain_tick_cuda(*args, A, R)  # the process's first call
+torch.cuda.synchronize()
+_assert_kernel_matches(got, drain_tick_plain(*args, A, R))
+print("ok")
+"""
+FIRST_CALL_SHAPES = {  # (B, M, K, L, A, R)
+    "captured": (1, 65536, 21, 29568, 5, 2112),
+    "edge_of_48kb": (1, 4096, 6, 1000, 6, 1792),
+}
+
+
+def run_fresh(code, *argv):
+    """Run ``code`` in a fresh interpreter (no kernel called yet) with the
+    port and the tests importable; its output must be ``ok``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(here, os.pardir, "src"), here]))
+    res = subprocess.run([sys.executable, "-c", code, *argv], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", \
+        res.stdout + res.stderr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FIRST_CALL_SHAPES))
+def test_first_call_sets_the_shared_memory_limit(cuda_device, case):
+    """The shared table needs the opt-in attribute, which the wrapper sets
+    at the process's first call of that size: inside a graph capture, and
+    where the dynamic size is 48 KB and the static slots push the total
+    over."""
+    run_fresh(FIRST_CALL, case)
 
 
 @pytest.mark.cuda

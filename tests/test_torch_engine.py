@@ -95,7 +95,8 @@ def test_port_matches_engine_goldens(case, golden):
 
 def test_port_report_matches_report_golden(golden):
     sc, seed = port_scenario("equiv-mix")
-    rep = MGR.run_scenario(sc, seed=seed, device="cpu")
+    with pytest.warns(DeprecationWarning, match="run_scenario"):
+        rep = MGR.run_scenario(sc, seed=seed, device="cpu")
     g = golden["equiv-mix"]
     assert rep["virtual_time_ms"] == g["report_virtual_time_ms"]
     for app, want in g["report_latency"].items():

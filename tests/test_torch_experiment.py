@@ -11,7 +11,7 @@ against the JAX facade and its goldens:
   fields exactly, other floats to rtol 1e-5: ``tests/torch_parity.py``).
   ``failures.json`` is in ``tests/test_torch_experiment_failures.py``;
 * a batched trace grid against the same cells run sequentially;
-* ``fabrics.json`` refused as not yet ported, before any engine is built;
+* ``fabrics.json`` loaded and planned as the JAX package does;
 * grid expansion and ``Plan.describe`` equal to the JAX planner's;
 * ``SpecError`` paths, the Results round trip and the v3 upgrade;
 * ``run_scenario``'s report against the one-member facade cell;
@@ -235,30 +235,30 @@ def test_batched_trace_grid_matches_sequential():
     assert sum(c.report["completed"] for c in res_b.cells) > 0
 
 
-def test_fabrics_spec_refused_as_not_yet_ported():
-    """``fabrics.json`` sweeps 1d, fat_tree and torus: the JAX package
-    loads it, the port refuses it when the spec is checked — at load
-    time from the file, at plan time for an Experiment built in code —
-    and builds no engine."""
+def test_fabrics_spec_accepted_as_reference():
+    """``fabrics.json`` sweeps 1d, fat_tree and torus: both packages load
+    it to the same spec and plan it to the same nodes (one engine bucket a
+    fabric); an Experiment built in code and a trace study naming each
+    fabric validate in both. The cells are run against the JAX facade in
+    ``tests/test_torch_fabric_engine.py``."""
     path = os.path.join(EXAMPLES, "fabrics.json")
-    assert REF.load_experiment(path).grid.fabrics == ["1d", "fat_tree",
-                                                      "torus"]
-    stats0 = ENG.engine_cache_stats()
-    with pytest.raises(union.SpecError,
-                       match=r"experiment\.grid.*'fat_tree' is not yet "
-                             "ported"):
-        union.load_experiment(path)
+    exp = union.load_experiment(path)
+    ref = REF.load_experiment(path)
+    assert exp.grid.fabrics == ref.grid.fabrics == ["1d", "fat_tree", "torus"]
+    assert exp.to_dict() == ref.to_dict()
+    got, want = PLN.plan(exp), REF_PLN.plan(ref)
+    assert got.describe() == want.describe()
+    assert len(got.batched_nodes) == 3
+    assert [c.scenario.topo for n in got.batched_nodes for c in n.cells] == \
+        [c.scenario.topo for n in want.batched_nodes for c in n.cells]
     for fabric in ("fat_tree", "torus"):
         exp = union.Experiment(
             name="f", scenarios=[tiny_scenario()],
             grid=union.StudyGrid(fabrics=["1d", fabric]))
-        with pytest.raises(ValueError, match=f"'{fabric}' is not yet ported"):
-            PLN.plan(exp)
-        with pytest.raises(ValueError, match="not yet ported"):
-            run_cpu(exp)
-        with pytest.raises(ValueError, match="not yet ported"):
-            union.TraceStudy(source="poisson", topo=fabric).validate()
-    assert ENG.engine_cache_stats() == stats0
+        assert PLN.plan(exp).describe() == \
+            REF_PLN.plan(_ref_experiment(exp)).describe()
+        union.TraceStudy(source="poisson", topo=fabric).validate()
+        REF.TraceStudy(source="poisson", topo=fabric).validate()
 
 
 # ---------------------------------------------------------------------------
@@ -437,9 +437,11 @@ def test_results_roundtrip_and_v3_upgrade(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_run_scenario_equals_one_member_facade_cell(golden):
-    """``run_scenario`` stays a direct run in the port; its report equals
-    the facade's one-member cell on every key the golden pins."""
-    direct = MGR.run_scenario(tiny_scenario(), seed=0, device="cpu")
+    """``run_scenario`` (deprecated: it warns) stays a direct run in the
+    port; its report equals the facade's one-member cell on every key the
+    golden pins."""
+    with pytest.warns(DeprecationWarning, match="run_scenario"):
+        direct = MGR.run_scenario(tiny_scenario(), seed=0, device="cpu")
     res = run_cpu(union.Experiment(name="tiny", scenarios=[tiny_scenario()],
                                    members=1, base_seed=0, vmapped=False))
     cell = res.cells[0].report

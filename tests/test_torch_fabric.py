@@ -1,13 +1,14 @@
 """The port's copies of the jax-free modules have not drifted.
 
 The port keeps its own copies of the DSL, the skeleton translator, the
-workloads, the dragonfly builders, the placement policies, the model
-configuration and the architecture registry, the scheduler's traces and
-queue policies, the host-plane observability modules (spans, export,
-metrics, sim-time timelines), the experiment reports (summaries, the
-interference summaries, formatting), ``fabric_key``, the §V validation
-interpreter and hlo2skeleton's DSL emitter. Built from the same inputs,
-each must give what the JAX package's module gives.
+workloads, the dragonfly, fat-tree and torus builders, the placement
+policies, the model configuration and the architecture registry, the
+scheduler's traces and queue policies, the host-plane observability
+modules (spans, export, metrics, sim-time timelines), the experiment
+reports (summaries, the interference summaries, formatting),
+``fabric_key``, the §V validation interpreter and hlo2skeleton's DSL
+emitter. Built from the same inputs, each must give what the JAX
+package's module gives.
 """
 import dataclasses
 
@@ -33,6 +34,16 @@ from repro_torch.sched import queue, trace
 from repro_torch.union.scenario import Scenario, ScenarioJob, mix_scenario
 
 DRAGONFLIES = [(n, s) for n in ("1d", "2d") for s in ("small", "paper")]
+OTHER_FABRICS = [(n, s) for n in ("fat_tree", "torus")
+                 for s in ("small", "paper")]
+ALL_FABRICS = DRAGONFLIES + OTHER_FABRICS
+LINK_TABLES = ("link_kind", "link_bw", "link_dst_router", "link_src_router")
+OTHER_ARRAYS = {"fat_tree": LINK_TABLES + ("up1_link", "up2_link",
+                                           "down1_link", "down2_link"),
+                "torus": LINK_TABLES + ("dim_link",)}
+OTHER_SIZES = ("n_routers", "n_nodes", "n_links", "route_width",
+               "place_routers", "nodes_per_router", "place_groups",
+               "nodes_per_group", "family")
 ARRAYS = ("link_kind", "link_bw", "link_dst_router", "link_src_router",
           "local_link_id", "global_gw", "global_link_id")
 SIZES = ("n_routers", "n_nodes", "n_links", "links_per_pair", "route_width",
@@ -56,6 +67,26 @@ def test_dragonfly_builders_match(name, scale):
         np.testing.assert_array_equal(lm, wm)
 
 
+@pytest.mark.parametrize("name,scale", OTHER_FABRICS)
+def test_fat_tree_torus_builders_match(name, scale):
+    want, got = ref_get_fabric(name, scale), get_fabric(name, scale)
+    assert type(got).__name__ == type(want).__name__
+    for a in OTHER_ARRAYS[name]:
+        w, g = getattr(want, a), getattr(got, a)
+        assert w.dtype == g.dtype, a
+        np.testing.assert_array_equal(g, w, err_msg=a)
+    for a in OTHER_SIZES:
+        assert getattr(got, a) == getattr(want, a), a
+    assert got.cache_key() == want.cache_key()
+    assert list(got.link_levels()) == list(want.link_levels())
+    for (ln, lm), (wn, wm) in zip(got.link_levels().items(),
+                                  want.link_levels().items()):
+        np.testing.assert_array_equal(lm, wm, err_msg=ln)
+    node = np.arange(got.n_nodes)
+    np.testing.assert_array_equal(got.node_router(node),
+                                  want.node_router(node))
+
+
 @pytest.mark.parametrize("scale", ["small", "paper"])
 @pytest.mark.parametrize("app", sorted(ref_workloads.SPECS))
 def test_workload_skeletons_match(app, scale):
@@ -67,7 +98,9 @@ def test_workload_skeletons_match(app, scale):
 
 
 @pytest.mark.parametrize("policy", ["RN", "RR", "RG"])
-@pytest.mark.parametrize("name,scale", [("1d", "small"), ("2d", "paper")])
+@pytest.mark.parametrize("name,scale", [("1d", "small"), ("2d", "paper"),
+                                        ("fat_tree", "paper"),
+                                        ("torus", "small")])
 def test_placements_match(policy, name, scale):
     topo = get_fabric(name, scale)
     ref_topo = ref_get_fabric(name, scale)
@@ -81,12 +114,31 @@ def test_placements_match(policy, name, scale):
 
 
 @pytest.mark.parametrize("fabric", ["fat_tree", "torus"])
-def test_unported_fabric_fails_validation(fabric):
-    sc = Scenario(name="x", jobs=[ScenarioJob(app="nn")], topo=fabric)
-    with pytest.raises(ValueError, match="not yet ported"):
+def test_fat_tree_torus_specs_accepted_as_reference(fabric):
+    """A scenario naming the fabric validates in both packages, with the
+    same spec and the same fabric; the registry lists every fabric in the
+    reference's order, so validation messages name the same ones."""
+    from repro.netsim.fabric import fabric_names as ref_fabric_names
+    from repro.union.scenario import Scenario as RefScenario
+    from repro.union.scenario import ScenarioJob as RefScenarioJob
+    from repro_torch.netsim.fabric import fabric_names
+
+    assert fabric_names() == ref_fabric_names()
+    for scale in ("small", "paper"):
+        sc = Scenario(name="x", jobs=[ScenarioJob(app="nn")], topo=fabric,
+                      scale=scale)
         sc.validate()
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_fabric(fabric, "small")
+        ref = RefScenario.from_dict(sc.to_dict())
+        ref.validate()
+        assert ref.to_dict() == sc.to_dict()
+        assert get_fabric(fabric, scale).cache_key() == \
+            ref_get_fabric(fabric, scale).cache_key()
+    with pytest.raises(ValueError, match="valid fabrics") as got:
+        Scenario(name="x", jobs=[ScenarioJob(app="nn")], topo="3d").validate()
+    with pytest.raises(ValueError, match="valid fabrics") as want:
+        RefScenario(name="x", jobs=[RefScenarioJob(app="nn")],
+                    topo="3d").validate()
+    assert str(got.value) == str(want.value)
 
 
 def test_mix_scenarios_validate():
@@ -160,7 +212,7 @@ def test_synthetic_traces_match(arrival, catalog):
         [dataclasses.asdict(c) for c in ref_trace.default_catalog()]
 
 
-def test_trace_roundtrip_and_unported_fabrics(tmp_path):
+def test_trace_roundtrip_and_fabrics(tmp_path):
     tr = trace.synthetic_trace(6, seed=2, placement="RR")
     p = str(tmp_path / "t.json")
     tr.to_json(p)
@@ -169,12 +221,15 @@ def test_trace_roundtrip_and_unported_fabrics(tmp_path):
     with pytest.raises(ValueError, match="unknown trace keys"):
         trace.Trace.from_dict(dict(tr.to_dict(), slotz=3))
     for fabric in ("fat_tree", "torus"):
-        # the JAX package accepts these fabrics; the port refuses them
-        ref_trace.Trace.from_dict(dict(tr.to_dict(), topo=fabric))
-        with pytest.raises(ValueError, match="not yet ported"):
-            trace.Trace.from_dict(dict(tr.to_dict(), topo=fabric))
-    with pytest.raises(ValueError, match="unknown topo"):
+        # both packages accept these fabrics, to the same trace
+        want = ref_trace.Trace.from_dict(dict(tr.to_dict(), topo=fabric))
+        got = trace.Trace.from_dict(dict(tr.to_dict(), topo=fabric))
+        assert got.to_dict() == want.to_dict()
+    with pytest.raises(ValueError, match="unknown topo") as got:
         trace.Trace.from_dict(dict(tr.to_dict(), topo="3d"))
+    with pytest.raises(ValueError, match="unknown topo") as want:
+        ref_trace.Trace.from_dict(dict(tr.to_dict(), topo="3d"))
+    assert str(got.value) == str(want.value)
 
 
 def _queue_jobs(mod, rng, n):
@@ -411,7 +466,7 @@ def test_report_summaries_match(seed):
             ref_report.format_sched_summary(rep)
 
 
-@pytest.mark.parametrize("name,scale", DRAGONFLIES)
+@pytest.mark.parametrize("name,scale", ALL_FABRICS)
 def test_fabric_key_matches(name, scale):
     from repro.netsim.fabric import fabric_key as ref_fabric_key
     from repro_torch.netsim.fabric import fabric_key

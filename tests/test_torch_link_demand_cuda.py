@@ -14,8 +14,17 @@ The hard cases put most entries in one bucket (longer than a block sorts
 in shared memory), make every message inactive, empty the pool, make it
 ragged, put -1 between valid links, give three members their own
 shares of active messages and crowd about 100 entries on every link; a
-CUDA-graph replay must give an eager call's bits. The numpy input generators here are shared with
-``tests/test_torch_link_demand.py`` and ``chip_smoke.py``.
+CUDA-graph replay must give an eager call's bits. The fabrics' other
+route widths (K = 6 on the fat tree, 8 on the small torus, 21 on the
+paper torus) run at their fabrics' shapes, ragged pools among them; at
+K = 21 a pool of 65,536 messages has too many route entries for the fold
+block's bitmap, so every bucket of more than 64 entries is folded by the
+block's walk over the pool, while a pool of 20,000 takes the bitmap for
+buckets up to 8,192 entries and the walk for a longer one. A fresh
+process's first call at the fat tree's and the torus's shapes (the
+latter inside a graph capture) must launch. The numpy
+input generators here are shared with ``tests/test_torch_link_demand.py``
+and ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -108,6 +117,91 @@ def test_kernel_equals_serial_cpu_sums_on_hard_cases(cuda_device, case):
     got = link_demand_cuda(*_on(x, cuda_device), L).cpu()
     want = link_demand_plain(*_on(x, "cpu"), L)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# the fabrics' route widths at their shapes: (B, M, K, L)
+WIDTHS = {
+    "fat_tree_paper": (1, 65536, 6, 49152),
+    "fat_tree_paper_ragged": (2, 65573, 6, 49152),
+    "torus_small_ragged": (2, 4099, 8, 1408),
+    "torus_paper": (1, 65536, 21, 29568),
+    "torus_paper_ragged": (1, 65573, 21, 29568),
+}
+
+
+def _long_bucket_inputs(B, M, K, L, seed):
+    """A pool whose link 3 takes a bucket of over 8,192 entries and link
+    100 one of about 3,000 (longer than a warp sorts, short enough for a
+    block's bitmap)."""
+    x = _inputs(B, M, K, L, seed)
+    u = np.random.default_rng(seed + 1).random(x["routes"].shape)
+    medium = 3000.0 / (M * K * 0.6)
+    x["routes"][u < 0.025] = 3
+    x["routes"][(u >= 0.025) & (u < 0.025 + medium)] = 100
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDTHS))
+def test_kernel_equals_serial_cpu_sums_at_fabric_widths(cuda_device, case):
+    B, M, K, L = WIDTHS[case]
+    x = _inputs(B, M, K, L, 23)
+    got = link_demand_cuda(*_on(x, cuda_device), L).cpu()
+    want = link_demand_plain(*_on(x, "cpu"), L)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [65536, 20000])
+def test_long_buckets_at_route_width_21(cuda_device, M):
+    """K = 21: at M = 65,536 the bitmap does not fit (every long bucket,
+    the eight hot links' and link 100's, walks the pool); at M = 20,000 it
+    does (link 100's bucket takes the bitmap, link 3's walks)."""
+    L = 29568
+    x = _long_bucket_inputs(1, M, 21, L, 37)
+    valid = (x["routes"] >= 0) & x["active"][:, :, None]
+    assert int((valid & (x["routes"] == 3)).sum()) > 8192
+    assert 64 < int((valid & (x["routes"] == 100)).sum()) <= 8192
+    got = link_demand_cuda(*_on(x, cuda_device), L).cpu()
+    want = link_demand_plain(*_on(x, "cpu"), L)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+FIRST_CALL = """
+import sys
+import torch
+from repro_torch.kernels.link_demand import link_demand_cuda, link_demand_plain
+from test_torch_link_demand_cuda import _inputs, _on, WIDTHS
+
+dev = torch.device("cuda", 0)
+B, M, K, L = WIDTHS[sys.argv[1]]
+x = _inputs(B, M, K, L, 61)
+on = _on(x, dev)
+if sys.argv[2] == "captured":
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # the process's first call
+        got = link_demand_cuda(*on, L)
+    graph.replay()
+else:
+    got = link_demand_cuda(*on, L)  # the process's first call
+torch.cuda.synchronize()
+want = link_demand_plain(*_on(x, "cpu"), L)
+assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,how", [("fat_tree_paper", "eager"),
+                                      ("torus_paper", "captured")])
+def test_first_call_sets_the_shared_memory_limit(cuda_device, case, how):
+    """A fresh process's first call: the paper fat tree's bitmap is 48 KB
+    of dynamic shared memory, over the limit with the fold kernel's static
+    arrays unless the wrapper sets the opt-in attribute; the paper torus's
+    first call inside a graph capture sets it there."""
+    from test_torch_drain_tick_cuda import run_fresh
+
+    run_fresh(FIRST_CALL, case, how)
 
 
 @pytest.mark.cuda

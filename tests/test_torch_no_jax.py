@@ -5,7 +5,8 @@
 * No source file of the port names either in an import.
 * An entry point called without ``device="cpu"`` on a machine without a
   card raises instead of running on the CPU: the scenario and LM entry
-  points, and the experiment facade ``repro_torch.union.run``.
+  points, the experiment facade ``repro_torch.union.run`` and the front
+  doors over it (the CLI, the ensemble shims, a server's job).
 """
 import os
 import pathlib
@@ -31,7 +32,11 @@ assert "repro_torch.launch.serve" in names, names
 assert "repro_torch.sched.scheduler" in names, names
 assert "repro_torch.obs.timeline" in names, names
 for name in ("union.experiment", "union.planner", "union.report",
-             "union.store", "core.interp", "core.hlo2skeleton"):
+             "union.store", "core.interp", "core.hlo2skeleton",
+             "netsim.fabric.fat_tree", "netsim.fabric.torus",
+             "union.ensemble", "union.cli", "union.__main__",
+             "union.client", "union.serve", "union.serve.server",
+             "union.serve.__main__", "core.eventgen"):
     assert "repro_torch." + name in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -57,6 +62,12 @@ IMPORT = re.compile(
 def test_no_port_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 20
+    for rel in ("netsim/fabric/fat_tree.py", "netsim/fabric/torus.py",
+                "union/ensemble.py", "union/cli.py", "union/__main__.py",
+                "union/client.py", "union/serve/__init__.py",
+                "union/serve/__main__.py", "union/serve/server.py",
+                "core/eventgen.py"):
+        assert PORT / rel in files, rel
     hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
             for p in files for m in IMPORT.finditer(p.read_text())]
     assert not hits, hits
@@ -89,7 +100,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     rs = manager.resolve(_tiny_scenario())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         manager.build(rs)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
+    with pytest.raises(RuntimeError, match="device='cpu'"), \
+            pytest.warns(DeprecationWarning, match="run_scenario"):
         manager.run_scenario(_tiny_scenario())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sim.run_sim("baseline-nn", "1d", "RG", "ADP", horizon_ms=1.0)
@@ -98,7 +110,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
                   "--out", str(tmp_path)])
     assert not list(tmp_path.iterdir())
     # and with the CPU asked for, the same scenario runs
-    rep = manager.run_scenario(_tiny_scenario(), device="cpu")
+    with pytest.warns(DeprecationWarning, match="run_scenario"):
+        rep = manager.run_scenario(_tiny_scenario(), device="cpu")
     assert rep["latency"]["pp"]["count"] == 4
 
 
@@ -112,6 +125,23 @@ def test_experiment_facade_raises_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         union.run(exp, store=str(store))
     assert not store.exists()  # it raised before touching the store
+    # the front doors over it: the CLI, the ensemble shims, a server job
+    from repro_torch.union import cli
+    from repro_torch.union.serve.server import JobManager
+
+    spec = tmp_path / "tiny.json"
+    _tiny_scenario().to_json(str(spec))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--scenario", str(spec), "--members", "1", "--out",
+                  str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"), \
+            pytest.warns(DeprecationWarning, match="run_campaign"):
+        union.run_campaign(_tiny_scenario(), members=1)
+    mgr = JobManager()
+    job = mgr.submit(exp.to_dict())
+    mgr.stop(timeout=60)
+    assert job.status == "error" and "device='cpu'" in job.error
     # and with the CPU asked for, the same experiment runs
     res = union.run(exp, device="cpu")
     assert res.cells[0].report["latency"]["pp"]["count"] == 4

@@ -104,8 +104,8 @@ def test_trace_matches_jax(trace, policy):
     tr = TRACES[trace]()
     want = REF_S._run_trace_impl(tr, policy=policy, seed=4,
                                  collect_state=True, timeline=True)
-    got = S.run_trace(port_trace(tr), policy=policy, seed=4,
-                      collect_state=True, timeline=True, device="cpu")
+    got = S._run_trace_impl(port_trace(tr), policy=policy, seed=4,
+                            collect_state=True, timeline=True, device="cpu")
     assert_same_result(got, want)
     assert all(r.completed for r in got.records)
     ew = got.engine_windows
@@ -132,8 +132,8 @@ def test_engine_cache_hits_evicts_and_rebuilds_the_same_bits(fresh_cache):
     assert S.build_sched_engine(tr, device=torch.device("cpu"))[0] is eng
     assert ENG.engine_cache_stats() == dict(
         hits=1, misses=1, builds=1, evictions=0, size=1, limit=-1)
-    first = S.run_trace(tr, policy="easy", seed=4, collect_state=True,
-                        device="cpu")
+    first = S._run_trace_impl(tr, policy="easy", seed=4,
+                              collect_state=True, device="cpu")
     eng.graphs["marker"] = object()  # stands for a captured graph
     other = S.build_sched_engine(tr, slots=2, device="cpu")[0]
     assert other is not eng
@@ -146,8 +146,8 @@ def test_engine_cache_hits_evicts_and_rebuilds_the_same_bits(fresh_cache):
     assert reg.gauge("engine_cache_limit").value() == 1
     rebuilt = S.build_sched_engine(tr, device="cpu")[0]
     assert rebuilt is not eng
-    again = S.run_trace(tr, policy="easy", seed=4, collect_state=True,
-                        device="cpu")
+    again = S._run_trace_impl(tr, policy="easy", seed=4,
+                              collect_state=True, device="cpu")
     assert_bitwise_equal(first.final_state, again.final_state)
     assert ENG.engine_cache_stats()["builds"] == 3
     with pytest.raises(ValueError, match=">= 1"):
@@ -175,7 +175,8 @@ def test_bound_engine_reports_its_own_run(fresh_cache):
                         np.float32(np.inf))
     assert b.last_window.ticks > 0 and b.last_run is None
     assert float(st_b.t) <= float(st.t)
-    rep = MGR.run_scenario(sc, seed=seed, device="cpu")
+    with pytest.warns(DeprecationWarning, match="run_scenario"):
+        rep = MGR.run_scenario(sc, seed=seed, device="cpu")
     assert rep["engine_run"]["ticks"] == a.last_run.ticks
     a.graphs["marker"] = object()  # stands for a captured graph
     ENG.clear_engine_cache()

@@ -51,10 +51,11 @@ def test_batch_with_a_midrun_outage_matches_jax_and_sequential():
     got = S.run_trace_batch(
         [(ptr, p, s) for p, s in grid] + [(ptr, "easy", 4, outage(F))],
         collect_state=True, timeline=True, device="cpu")
-    seq = [S.run_trace(ptr, policy=p, seed=s, collect_state=True,
-                       timeline=True, device="cpu") for p, s in grid]
-    seq.append(S.run_trace(ptr, policy="easy", seed=4, failure=outage(F),
-                           collect_state=True, timeline=True, device="cpu"))
+    seq = [S._run_trace_impl(ptr, policy=p, seed=s, collect_state=True,
+                             timeline=True, device="cpu") for p, s in grid]
+    seq.append(S._run_trace_impl(
+        ptr, policy="easy", seed=4, failure=outage(F), collect_state=True,
+        timeline=True, device="cpu"))
     for g, w, q in zip(got, want, seq):
         assert_same_result(g, w)
         assert g.windows == q.windows

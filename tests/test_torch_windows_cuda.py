@@ -167,16 +167,16 @@ def fresh_cache():
 def test_one_capture_serves_every_window_of_a_trace(card, fresh_cache):
     tr = _trace()
     engine = S.build_sched_engine(tr, device=card)
-    first = S.run_trace(tr, policy="easy", seed=4, engine=engine,
-                        collect_state=True)
+    first = S._run_trace_impl(tr, policy="easy", seed=4, engine=engine,
+                              collect_state=True)
     ew = first.engine_windows
     assert all(r.completed for r in first.records)
     assert ew["captures"] == 1 and ew["windows"] == first.windows > 3
     assert ew["launches"]["drain_tick"] == ew["ticks"]
     assert ew["launches"]["link_demand"] == ew["ticks"]
     assert 0 < ew["live_ticks"] <= ew["ticks"]
-    second = S.run_trace(tr, policy="easy", seed=4, engine=engine,
-                         collect_state=True)
+    second = S._run_trace_impl(tr, policy="easy", seed=4, engine=engine,
+                               collect_state=True)
     assert second.engine_windows["captures"] == 0
     assert [(r.slot, r.start_us, r.finish_us, r.msgs)
             for r in second.records] == \
@@ -188,7 +188,7 @@ def test_one_capture_serves_every_window_of_a_trace(card, fresh_cache):
 def test_eviction_frees_the_graphs(card, fresh_cache):
     tr = _trace()
     eng = S.build_sched_engine(tr, device=card)[0]
-    S.run_trace(tr, policy="fcfs", seed=1)
+    S._run_trace_impl(tr, policy="fcfs", seed=1)
     assert len(eng.graphs) == 1
     static = weakref.ref(next(iter(eng.graphs.values())).static.pool.routes)
     ENG.set_engine_cache_limit(1)
