@@ -121,11 +121,33 @@ its seconds, and any failure raises (non-zero exit, no result line):
 10. the port's serve loop (4 slots, 8 requests, prompt 16, 24 generated
    tokens): served tokens, decode tokens per second; a profile of one
    decode step;
-11. the kernel summary line (each kernel's launches as read in the counted
+11. ``lm_prefill_dense``: ``mistral_nemo_12b`` at full width and depth
+   (40 layers, 12.2 B float32 weights from seed 0, bfloat16 compute)
+   through ``make_prefill_step`` on 2 requests x 4,096 tokens, counted
+   like phase 9 (every count 0: no hand-written kernel is on this path):
+   step seconds, prefill tokens per second, peak device memory, a
+   profile of one step (busy share, kernels, the top 10) and the step's
+   time by part (attention, MLP, MoE, Mamba-2: CUDA events around each
+   call, ``part_ms``); forward against decode at
+   least 95 % equal in float32 over 2 x 64 tokens (and the bfloat16
+   figure);
+12. ``lm_serve_dense``: the same model through the serve loop as in 10;
+13. ``lm_families``: the six other decoder-only architectures at full
+   width, depth cut (``FAMILIES``): one counted prefill of one request
+   (4,096 tokens; 6,144 for ``mixtral_8x22b``, past its 4,096-key
+   window), its profile (the top 5) and time by part, forward against
+   decode at least 95 % equal in float32 over
+   2 x 64 tokens at a MoE capacity factor of E/k (where no token drops;
+   the figure at the config's factor is printed too), a serve of 4
+   requests (prompt 8, 8 generated), each one's weights freed before the
+   next; ``jamba_v01_52b``'s scan launches equal its calls (7 Mamba
+   layers) and the kernel holds to its plain version on its first Mamba
+   layer's input (``ds`` 16, 128 heads of 64);
+14. the kernel summary line (each kernel's launches as read in the counted
    windows, the simulator kernels' also on the trace's windows, the
    facade's run and the two paper fabrics, with their device ms on each
-   fabric's live pool, its largest error against its plain version), then
-   the result line.
+   fabric's live pool, the SSD scan's also on ``lm_families``; its
+   largest error against its plain version), then the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``); the card
 tests' input generators come from ``tests/test_torch_*_cuda.py``, which
@@ -174,6 +196,7 @@ WRAPPER_KERNELS = {
                     "link_fold_kernel"),
 }
 LM_ARCH = "mamba2_370m"
+DENSE_ARCH = "mistral_nemo_12b"
 
 
 def emit(obj) -> None:
@@ -1962,7 +1985,7 @@ def phase_front_doors(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 9-10: Mamba-2 serving
+# phases 9-13: language-model serving
 # ---------------------------------------------------------------------------
 
 def agreement(params, cfg, tokens, dev):
@@ -1988,25 +2011,26 @@ def agreement(params, cfg, tokens, dev):
     return float((torch.stack(preds, 1) == full).float().mean())
 
 
-def phase_lm_prefill(dev, steps=3):
+def lm_tokens(cfg, B, S, seed, dev):
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32), device=dev)
+
+
+def counted_prefill(params, cfg, tokens, steps, what):
+    """``make_prefill_step`` once to warm up, then ``steps`` times with the
+    launch counts set to 0 just before and read just after and the peak
+    memory reset: (tokens, wall seconds a step, {kernel: (launches,
+    calls)}, peak MiB). Every call on the card must have launched."""
+    import torch
+
     from repro_torch.kernels import ops
-    from repro_torch.models import model as MDL
     from repro_torch.train.serve_step import make_prefill_step
 
-    t0 = time.perf_counter()
-    cfg = get_config(LM_ARCH)
-    params = MDL.init_model(cfg, seed=0, device=dev)
-    n_params = sum(p.numel() for p in params.parameters())
-    B, S = 8, 4096
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, S), dtype=np.int32), device=dev)
     prefill = make_prefill_step(cfg)
     prefill(params, tokens)  # warm-up: cuBLAS handles, allocator
-    # the main path, counted: counts set to 0 just before, read just after
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -2016,21 +2040,50 @@ def phase_lm_prefill(dev, steps=3):
         out = prefill(params, tokens)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
-    launches, calls = ops.LAUNCHES["ssd_scan"], ops.CALLS["ssd_scan"]
-    router_launches = ops.LAUNCHES["router_rate_drain"]
-    need(router_launches == ops.CALLS["router_rate_drain"],
-         f"lm_prefill: {router_launches} route-rate-drain launches for "
-         f"{ops.CALLS['router_rate_drain']} calls")
+    counts = {k: (ops.LAUNCHES[k], ops.CALLS[k]) for k in ops.KERNELS}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    for k, (n, c) in counts.items():
+        need(n == c, f"{what}: {n} {k} launches for {c} calls")
+    need(tuple(out.shape) == (tokens.shape[0],) and out.dtype == torch.int32
+         and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+         f"{what}: tokens {out}")
+    return out, walls, counts, peak_mib
+
+
+def step_profile(fn, top=10):
+    """One call of ``fn`` under the profiler: wall and device ms, the
+    device's busy share, device kernels, the ``top`` kernels; and the
+    profiler's rows."""
+    _, wall_us, rows = device_profile(fn)
+    busy_us = sum(r[0] for r in rows)
+    return dict(wall_ms=wall_us / 1e3, device_ms=busy_us / 1e3,
+                device_busy_share=busy_us / wall_us,
+                device_kernels=sum(r[1] for r in rows),
+                top=[dict(name=k[:70], ms=us / 1e3, calls=c)
+                     for us, c, k in rows[:top]]), rows
+
+
+def phase_lm_prefill(dev, steps=3):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.train.serve_step import make_prefill_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    params = MDL.init_model(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    B, S = 8, 4096
+    tokens = lm_tokens(cfg, B, S, 0, dev)
+    out, walls, counts, peak_mib = counted_prefill(params, cfg, tokens,
+                                                   steps, "lm_prefill")
+    launches, calls = counts["ssd_scan"]
+    router_launches = counts["router_rate_drain"][0]
     need(launches == calls == cfg.n_layers * steps,
          f"lm_prefill: {launches} scan launches for {calls} calls, want "
          f"{cfg.n_layers} a step")
-    need(tuple(out.shape) == (B,) and out.dtype == torch.int32
-         and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-         f"lm_prefill: tokens {out}")
     step_s = sorted(walls)[len(walls) // 2]
-    _, wall_us, rows = device_profile(lambda: prefill(params, tokens))
-    busy_us = sum(r[0] for r in rows)
+    prefill = make_prefill_step(cfg)
+    prof, rows = step_profile(lambda: prefill(params, tokens))
     scan_us = {name: sum(r[0] for r in rows if name in r[2])
                for name in SSD_KERNELS}
     scan_calls = {name: sum(r[1] for r in rows if name in r[2])
@@ -2038,17 +2091,12 @@ def phase_lm_prefill(dev, steps=3):
     need(all(n == cfg.n_layers for n in scan_calls.values()),
          f"lm_prefill: the profiled step ran the scan's kernels {scan_calls} "
          f"times, want {cfg.n_layers} each")
-    prof = dict(wall_ms=wall_us / 1e3, device_ms=busy_us / 1e3,
-                device_busy_share=busy_us / wall_us,
-                ssd_scan_share_of_device=sum(scan_us.values()) / busy_us,
-                ssd_scan_device_ms={k: us / 1e3 for k, us in scan_us.items()},
-                device_kernels=sum(r[1] for r in rows),
-                top=[dict(name=k[:70], ms=us / 1e3, calls=c)
-                     for us, c, k in rows[:10]])
+    prof.update(ssd_scan_share_of_device=sum(scan_us.values())
+                / (prof["device_ms"] * 1e3),
+                ssd_scan_device_ms={k: us / 1e3 for k, us in scan_us.items()})
 
     # forward vs decode on the card, float32 compute (the same weights)
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 64), dtype=np.int32), device=dev)
+    toks = lm_tokens(cfg, 2, 64, 1, dev)
     agree32 = agreement(params, cfg.replace(compute_dtype="float32"), toks,
                         dev)
     need(agree32 >= 0.95, f"lm_prefill: forward/decode agreement {agree32} "
@@ -2068,7 +2116,7 @@ def phase_lm_prefill(dev, steps=3):
                              router_rate_drain=router_launches)
 
 
-def phase_lm_serve(params, cfg, dev):
+def phase_lm_serve(params, cfg, dev, phase="lm_serve"):
     import numpy as np
     import torch
 
@@ -2082,26 +2130,228 @@ def phase_lm_serve(params, cfg, dev):
     outputs, st = serve(params, cfg, prompts, slots=4, gen_len=24, device=dev)
     need(sorted(outputs) == list(range(8))
          and all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v)
-                 for v in outputs.values()), "lm_serve: outputs")
+                 for v in outputs.values()), f"{phase}: outputs")
     # one decode step of 4 slots under the profiler
     state = make_decode_state(cfg, 4, 40, dtype=torch.float32, device=dev)
     tok = torch.as_tensor(prompts[:4, 0], device=dev)
     step = make_decode_step(cfg)
     step(params, state, tok)
-    _, wall_us, rows = device_profile(lambda: step(params, state, tok))
-    busy_us = sum(r[0] for r in rows)
-    prof = dict(wall_ms=wall_us / 1e3, device_ms=busy_us / 1e3,
-                device_busy_share=busy_us / wall_us,
-                device_kernels=sum(r[1] for r in rows),
-                top=[dict(name=k[:70], ms=us / 1e3, calls=c)
-                     for us, c, k in rows[:5]])
-    emit(dict(phase="lm_serve", seconds=time.perf_counter() - t0,
-              slots=4, requests=st["requests"], prompt_len=16, gen_len=24,
-              waves=st["waves"], decode_steps=st["decode_steps"],
+    prof, _ = step_profile(lambda: step(params, state, tok), top=5)
+    emit(dict(phase=phase, seconds=time.perf_counter() - t0,
+              arch=cfg.name, slots=4, requests=st["requests"], prompt_len=16,
+              gen_len=24, waves=st["waves"], decode_steps=st["decode_steps"],
               served_tokens=st["tokens"], wall_s=st["wall_s"],
               served_tokens_per_s=st["tokens"] / st["wall_s"],
               decode_tokens_per_s=st["decode_steps"] * 4 / st["wall_s"],
               first_request=outputs[0], decode_step_profile=prof))
+
+
+# the model's parts a prefill step is split into, as (module, function):
+# the model and the layers call each through its module, so a wrapper set
+# on the module sees every call
+PARTS = (("layers", "chunked_attention"), ("layers", "apply_mlp"),
+         ("moe", "apply_moe"), ("mamba2", "mamba_forward"))
+
+
+def part_ms(fn):
+    """One call of ``fn`` with CUDA events recorded around every call of
+    each of ``PARTS`` and around the whole: the whole's ms and, for each
+    part, its calls, ms and share of the whole. A part's time runs from its first kernel's start to its
+    last's end on the stream, idle gaps included, so it is device time
+    only where the device is busy (a prefill step is, 97-99 %)."""
+    import importlib
+
+    import torch
+
+    marks, saved = [], []
+
+    def timed(name, f):
+        def call(*args, **kw):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            t0.record()
+            out = f(*args, **kw)
+            t1.record()
+            marks.append((name, t0, t1))
+            return out
+        return call
+
+    for mod_name, name in PARTS:
+        mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, timed(name, getattr(mod, name)))
+    try:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    parts = {}
+    for name, a, b in marks:
+        entry = parts.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += a.elapsed_time(b)
+    whole = t0.elapsed_time(t1)
+    return dict(whole_ms=whole, parts={
+        k: dict(calls=n, ms=ms, share=ms / whole)
+        for k, (n, ms) in parts.items()})
+
+
+def phase_lm_prefill_dense(dev, steps=3):
+    """``mistral_nemo_12b`` at full width and depth (12.2 B float32
+    parameters, bfloat16 compute) through ``make_prefill_step`` on 2
+    requests x 4,096 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.train.serve_step import make_prefill_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(DENSE_ARCH)
+    params = MDL.init_model(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    B, S = 2, 4096
+    tokens = lm_tokens(cfg, B, S, 0, dev)
+    out, walls, counts, peak_mib = counted_prefill(
+        params, cfg, tokens, steps, "lm_prefill_dense")
+    step_s = sorted(walls)[len(walls) // 2]
+    prefill = make_prefill_step(cfg)
+    prof, _ = step_profile(lambda: prefill(params, tokens))
+    prof["parts"] = part_ms(lambda: prefill(params, tokens))
+    toks = lm_tokens(cfg, 2, 64, 1, dev)
+    agree32 = agreement(params, cfg.replace(compute_dtype="float32"), toks,
+                        dev)
+    need(agree32 >= 0.95, f"lm_prefill_dense: forward/decode agreement "
+         f"{agree32} below 0.95 in float32")
+    agree16 = agreement(params, cfg, toks, dev)
+    emit(dict(phase="lm_prefill_dense", seconds=time.perf_counter() - t0,
+              arch=DENSE_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+              heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+              vocab=cfg.vocab_size, params=n_params,
+              param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+              batch=B, seq=S, steps=steps, step_s=walls,
+              prefill_tokens_per_s=B * S / step_s,
+              launches={k: n for k, (n, _) in counts.items()},
+              peak_device_mib=peak_mib, first_tokens=out.tolist(),
+              profile=prof, agreement_f32=agree32, agreement_bf16=agree16))
+    return params, cfg
+
+
+# each other decoder-only architecture at full width: its depth (cut to
+# fit one card and keep the phase short) and its prefill length
+FAMILIES = (
+    ("command_r_35b", 4, 4096),  # LayerNorm, tied, vocab 256,000
+    ("mistral_large_123b", 4, 4096),  # bfloat16 weights
+    ("nemotron_4_340b", 2, 4096),  # squared ReLU, d_head 192, LayerNorm
+    ("mixtral_8x22b", 4, 6144),  # 8 experts top-2; the 4,096-key window
+    ("granite_moe_3b_a800m", 32, 4096),  # 40 experts top-8, all layers
+    ("jamba_v01_52b", 8, 4096),  # one whole period: Mamba, attention, MoE
+)
+
+
+def recorded_scan_inputs():
+    """Wrap ``ops.ssd_scan`` (through which the Mamba-2 mixer calls it) so
+    that the first call's inputs are kept; returns (the kept list, a
+    function that restores the wrapper)."""
+    from repro_torch.kernels import ops
+
+    kept, orig = [], ops.ssd_scan
+
+    def keep(*args):
+        if not kept:
+            kept.extend(a.clone() for a in args)
+        return orig(*args)
+
+    ops.ssd_scan = keep
+    return kept, lambda: setattr(ops, "ssd_scan", orig)
+
+
+def phase_lm_families(dev):
+    """Each of the other six decoder-only architectures at full width and
+    the depth of ``FAMILIES``: a counted prefill of one request, forward
+    against decode in float32 over 2 x 64 tokens, a serve of 4 requests.
+    Returns the SSD scan's launches in jamba's counted prefill."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as MDL
+    from repro_torch.models.moe import no_drop
+    from repro_torch.train.serve_step import make_prefill_step
+
+    scan = None
+    for arch, layers, S in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(n_layers=layers)
+        params = MDL.init_model(cfg, seed=0, device=dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        init_s = time.perf_counter() - t0
+        tokens = lm_tokens(cfg, 1, S, 0, dev)
+        kept, restore = recorded_scan_inputs()
+        try:
+            out, walls, counts, peak_mib = counted_prefill(
+                params, cfg, tokens, 1, arch)
+        finally:
+            restore()
+        prefill = make_prefill_step(cfg)
+        prof, _ = step_profile(lambda: prefill(params, tokens), top=5)
+        prof["parts"] = part_ms(lambda: prefill(params, tokens))
+        line = dict(phase="lm_families", arch=arch, layers=layers,
+                    d_model=cfg.d_model, params=n_params,
+                    param_dtype=cfg.param_dtype, init_s=init_s, seq=S,
+                    step_s=walls[0], prefill_tokens_per_s=S / walls[0],
+                    launches={k: n for k, (n, _) in counts.items()},
+                    peak_device_mib=peak_mib, first_token=out.tolist(),
+                    profile=prof)
+        n_mamba = sum(s.kind == "mamba" for s in cfg.period) * cfg.n_periods
+        need(counts["ssd_scan"] == (n_mamba, n_mamba),
+             f"{arch}: ssd_scan {counts['ssd_scan']} (launches, calls), want "
+             f"{n_mamba} each")
+        if n_mamba:
+            # the kernel against its plain version on the first Mamba
+            # layer's input, as the warm-up prefill gave it
+            yk, hk = ssd_scan_cuda(*kept)
+            yp, hp = ssd_scan_plain(*kept)
+            torch.cuda.synchronize()
+            scan = dict(launches=counts["ssd_scan"][0],
+                        shape=dict(BH=kept[0].shape[0], groups=kept[3].shape[0],
+                                   nc=kept[0].shape[1], Q=kept[0].shape[2],
+                                   hd=kept[0].shape[3], ds=kept[3].shape[3]),
+                        max_abs_err=max(ssd_check(yk, yp, f"{arch} y"),
+                                        ssd_check(hk, hp, f"{arch} h")))
+            line["ssd_scan"] = scan
+            del yk, hk, yp, hp
+        del kept
+        toks = lm_tokens(cfg, 2, 64, 1, dev)
+        f32 = cfg.replace(compute_dtype="float32")
+        line["agreement_f32"] = agreement(params, no_drop(f32), toks, dev)
+        need(line["agreement_f32"] >= 0.95, f"{arch}: forward/decode "
+             f"agreement {line['agreement_f32']} below 0.95 in float32")
+        if cfg.moe_num_experts:
+            line["moe_capacity_factor_for_agreement"] = \
+                cfg.moe_num_experts / cfg.moe_top_k
+            line["agreement_f32_config_capacity"] = agreement(
+                params, f32, toks, dev)
+        prompts = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (4, 8), dtype=np.int32)
+        outputs, st = serve(params, cfg, prompts, slots=4, gen_len=8,
+                            device=dev)
+        need(sorted(outputs) == list(range(4))
+             and all(len(v) == 8 and all(0 <= t < cfg.vocab_size for t in v)
+                     for v in outputs.values()), f"{arch}: serve outputs")
+        line.update(served_tokens=st["tokens"], serve_wall_s=st["wall_s"],
+                    seconds=time.perf_counter() - t0)
+        emit(line)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    need(scan is not None, "lm_families: no Mamba layer ran the scan")
+    return scan
 
 
 def free_engines() -> None:
@@ -2183,6 +2433,13 @@ def main() -> int:
     free_engines()
     params, cfg, lm_launches = phase_lm_prefill(dev)
     phase_lm_serve(params, cfg, dev)
+    del params
+    free_engines()
+    params, cfg = phase_lm_prefill_dense(dev)
+    phase_lm_serve(params, cfg, dev, phase="lm_serve_dense")
+    del params
+    free_engines()
+    families_scan = phase_lm_families(dev)
 
     main_row, dem = rows[0], dem_rows[0]
     emit({"kernels": [
@@ -2223,10 +2480,13 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:59",
              tpu="src/repro/kernels/ssd_scan.py::ssd_scan_pallas",
-             launches=lm_launches["ssd_scan"], max_abs_err=ssd["max_abs_err"],
+             launches=lm_launches["ssd_scan"],
+             max_abs_err=max(ssd["max_abs_err"], families_scan["max_abs_err"]),
              ms=ssd["ms"], plain_ms=ssd["plain_ms"],
              bound_ms=ssd["bound_ms"], bound_by=ssd["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             # jamba_v01_52b's counted prefill on lm_families (ds 16)
+             families_launches=families_scan["launches"]),
         dict(name="router_rate_drain", route="cuda",
              source="src/repro_torch/kernels/csrc/router_tick.cu",
              replaces="src/repro/kernels/router_tick.py:48",

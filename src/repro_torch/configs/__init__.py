@@ -1,11 +1,12 @@
 """Architecture registry: one module per architecture the port serves.
 
 A copy of the JAX package's ``configs/__init__.py`` for the architectures
-ported so far. ``get_config(name)`` returns the full published config;
-``get_smoke_config(name)`` a reduced same-family config for CPU tests (few
-layers, narrow width, tiny vocab, the same period structure). The other
-architectures of the JAX package's registry are refused as not yet
-ported.
+ported so far: every decoder-only one. ``get_config(name)`` returns the
+full published config; ``get_smoke_config(name)`` a reduced same-family
+config for CPU tests (few layers, narrow width, tiny vocab, the same
+period structure). The encoder-decoder and the vision-language model of
+the JAX package's registry (``whisper_medium``, ``internvl2_1b``) are
+refused as not yet ported.
 """
 from __future__ import annotations
 
@@ -26,7 +27,16 @@ ARCH_IDS: List[str] = [
     "granite_moe_3b_a800m",
     "mixtral_8x22b",
 ]
-PORTED: List[str] = ["mamba2_370m"]
+PORTED: List[str] = [
+    "mistral_nemo_12b",
+    "mistral_large_123b",
+    "command_r_35b",
+    "nemotron_4_340b",
+    "mamba2_370m",
+    "jamba_v01_52b",
+    "granite_moe_3b_a800m",
+    "mixtral_8x22b",
+]
 
 
 # canonical dashed ids (CLI --arch accepts either form)

@@ -3,8 +3,11 @@
 The port's counterpart of the JAX package's ``launch/serve.py`` (the
 language-model token-decoding server, not the Union simulation service).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral_nemo_12b \
       --smoke --device cpu --requests 8 --prompt-len 16 --gen-len 24
+
+Every decoder-only architecture of the registry serves
+(``repro_torch.configs.PORTED``).
 
 Rows of the decode batch are serving slots. Requests are admitted in
 waves of ``slots``: a wave starts from a fresh decode state, feeds the

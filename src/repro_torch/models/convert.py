@@ -23,20 +23,24 @@ def _put(param: torch.nn.Parameter, arr, name: str) -> None:
 
 def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> Model:
     """The port's parameters from the JAX package's ``init_model`` tree
-    (nested dicts of arrays; each layer leaf stacked on ``n_periods``)."""
+    (nested dicts of arrays; each layer leaf stacked on ``n_periods``):
+    the embedding, the untied unembedding, the norms' scales and biases,
+    and each position's attention (with its biases), Mamba-2 mixer, MLP
+    and MoE layer (router and stacked experts)."""
     model = init_model(cfg, device=device)
     _put(model.embed, tree["embed"], "embed")
+    if not cfg.tie_embeddings:
+        _put(model.unembed, tree["unembed"], "unembed")
     for k, v in tree["final_norm"].items():
         _put(model.final_norm[k], v, f"final_norm.{k}")
     for i in range(len(cfg.period)):
         pos = tree["layers"][f"pos{i}"]
         for pi, period in enumerate(model.layers):
             blk = period[f"pos{i}"]
-            for norm in ("norm1", "norm2"):
-                for k, v in pos[norm].items():
-                    _put(getattr(blk, norm)[k], np.asarray(v)[pi],
-                         f"layers.pos{i}.{norm}.{k}[{pi}]")
-            for k, v in pos["mamba"].items():
-                _put(getattr(blk.mamba, k), np.asarray(v)[pi],
-                     f"layers.pos{i}.mamba.{k}[{pi}]")
+            for part, leaves in pos.items():
+                mod = getattr(blk, part)
+                for k, v in leaves.items():
+                    _put(mod[k] if isinstance(mod, torch.nn.ParameterDict)
+                         else getattr(mod, k), np.asarray(v)[pi],
+                         f"layers.pos{i}.{part}.{k}[{pi}]")
     return model

@@ -2,7 +2,8 @@
 
 * prefill: a full-sequence forward producing the first sampled token (what
   a disaggregated-prefill worker runs);
-* decode: one new token against a populated SSM cache (``decode_step``).
+* decode: one new token against populated KV and SSM caches
+  (``decode_step``).
 
 Requests are rows of the batch; serving slots map 1:1 onto rows (a freed
 row is refilled by the server loop in :mod:`repro_torch.launch.serve`).

@@ -27,10 +27,10 @@ from repro_torch.launch import serve as SERVE
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import model as MDL
-from repro_torch.models.config import LayerSpec
 from repro_torch.models.convert import params_from_jax
 from repro_torch.train.serve_step import (
     make_decode_state, make_decode_step, make_prefill_step)
+from torch_parity import jax_serve
 
 ARCH = "mamba2_370m"
 
@@ -151,36 +151,11 @@ def test_forward_agrees_with_decode(setup):
     assert match >= 0.95, match
 
 
-def _jax_serve(jparams, jcfg, prompts, slots, gen_len):
-    """The JAX package's serve loop (``repro/launch/serve.py``) on given
-    weights and prompts."""
-    step = jax.jit(lambda p, s, t: JMDL.decode_step(p, s, t, jcfg))
-    n_req, plen = prompts.shape
-    queue = list(range(n_req))
-    outputs = {}
-    while queue:
-        slot_req = [queue.pop(0) if queue else -1 for _ in range(slots)]
-        state = JMDL.init_decode_state(jcfg, slots, plen + gen_len,
-                                       dtype=jnp.float32)
-        tok = jnp.zeros((slots,), jnp.int32)
-        for r in slot_req:
-            if r >= 0:
-                outputs[r] = []
-        for t in range(plen + gen_len):
-            feed = [0 if r < 0 else int(prompts[r, t]) if t < plen
-                    else int(tok[s]) for s, r in enumerate(slot_req)]
-            tok, state = step(jparams, state, jnp.asarray(feed, jnp.int32))
-            if t >= plen:
-                for s, r in enumerate(slot_req):
-                    if r >= 0:
-                        outputs[r].append(int(tok[s]))
-    return outputs
-
-
 def test_serve_loop_matches_jax(setup):
     jcfg, cfg, jparams, params = setup
     prompts = _tokens(cfg, 5, 7, 5)  # 5 requests in waves of 3: one slot idle
-    want = _jax_serve(jparams, jcfg, prompts, slots=3, gen_len=9)
+    step = jax.jit(lambda p, s, t: JMDL.decode_step(p, s, t, jcfg))
+    want = jax_serve(step, jparams, jcfg, prompts, slots=3, gen_len=9)
     got, stats = SERVE.serve(params, cfg, prompts, slots=3, gen_len=9,
                              device="cpu")
     assert got == want
@@ -197,13 +172,16 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_unported_architectures_raise():
-    from repro_torch.configs import get_config
+    """Only the encoder-decoder and the vision-language model wait."""
+    from repro_torch.configs import PORTED, get_config
 
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_config("jamba_v01_52b")
+    for arch in ("whisper_medium", "internvl2_1b"):
+        assert arch not in PORTED
+        with pytest.raises(ValueError, match="not yet ported"):
+            get_config(arch)
     with pytest.raises(ValueError, match="unknown architecture"):
         get_config("llama_7b")
     cfg = get_smoke_config(ARCH)
-    dense = cfg.replace(period=(LayerSpec(kind="attn", mlp="dense"),))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        MDL.init_model(dense, device="cpu")
+    for extra in (dict(enc_layers=2, enc_seq=24), dict(num_patches=8)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            MDL.init_model(cfg.replace(**extra), device="cpu")

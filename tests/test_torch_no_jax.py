@@ -36,7 +36,7 @@ for name in ("union.experiment", "union.planner", "union.report",
              "netsim.fabric.fat_tree", "netsim.fabric.torus",
              "union.ensemble", "union.cli", "union.__main__",
              "union.client", "union.serve", "union.serve.server",
-             "union.serve.__main__", "core.eventgen"):
+             "union.serve.__main__", "core.eventgen", "models.moe"):
     assert "repro_torch." + name in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -66,7 +66,7 @@ def test_no_port_source_imports_jax_or_repro():
                 "union/ensemble.py", "union/cli.py", "union/__main__.py",
                 "union/client.py", "union/serve/__init__.py",
                 "union/serve/__main__.py", "union/serve/server.py",
-                "core/eventgen.py"):
+                "core/eventgen.py", "models/moe.py"):
         assert PORT / rel in files, rel
     hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
             for p in files for m in IMPORT.finditer(p.read_text())]

@@ -129,3 +129,35 @@ def test_wrapper_counts_launches_and_refuses(cuda_device):
     big = _on(_inputs(1, 1, 256, 128, 256, 4), cuda_device)
     with pytest.raises(RuntimeError, match="shared memory"):
         ssd_scan_cuda(*big)
+
+
+@pytest.mark.cuda
+def test_kernel_at_jamba_shape_through_the_mixer(cuda_device):
+    """``jamba_v01_52b``'s Mamba layers: 128 heads of 64 sharing one group
+    of B and C with ``ds`` 16, chunks of 128, on a ragged sequence (4,000
+    tokens, padded by ``ssd_chunked`` with dt = 0 to 32 chunks): the
+    kernel on the card against the plain scan on the CPU, then one full
+    chunk grid (4,096 tokens) against the plain scan on the card."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    rng = np.random.default_rng(11)
+    f32 = np.float32
+    S, nh, hd, ds = 4000, 128, 64, 16
+    raw = (rng.standard_normal((1, S, nh, hd)).astype(f32),
+           np.log1p(np.exp(rng.standard_normal((1, S, nh)) - 2.0)).astype(f32),
+           (-np.exp(rng.standard_normal(nh))).astype(f32),
+           rng.standard_normal((1, S, ds)).astype(f32),
+           rng.standard_normal((1, S, ds)).astype(f32),
+           rng.standard_normal(nh).astype(f32))
+    got = ssd_chunked(*[torch.as_tensor(a, device=cuda_device) for a in raw],
+                      chunk=128)
+    want = ssd_chunked(*map(torch.as_tensor, raw), chunk=128)
+    assert got.shape == (1, S, nh, hd)
+    assert_ssd_close(got.cpu(), want, "ragged")
+
+    args = _on(_inputs(nh, 32, 128, hd, ds, 12, groups=1), cuda_device)
+    yk, hk = ssd_scan_cuda(*args)
+    yp, hp = ssd_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert_ssd_close(yk, yp, "y")
+    assert_ssd_close(hk, hp, "h")

@@ -135,3 +135,32 @@ def assert_cells_match(got_cells, want_cells):
         assert gd == wd
         bad = report_mismatches(gr, wr, f"cell {g.key}")
         assert not bad, bad[:10]
+
+
+def jax_serve(step, jparams, jcfg, prompts, slots, gen_len):
+    """The JAX package's serve loop (``repro/launch/serve.py``) on given
+    weights and prompts, through ``step`` (a jitted ``decode_step``):
+    each request's generated tokens."""
+    import jax.numpy as jnp
+    from repro.models import model as JMDL
+
+    n_req, plen = prompts.shape
+    queue = list(range(n_req))
+    outputs = {}
+    while queue:
+        slot_req = [queue.pop(0) if queue else -1 for _ in range(slots)]
+        state = JMDL.init_decode_state(jcfg, slots, plen + gen_len,
+                                       dtype=jnp.float32)
+        tok = jnp.zeros((slots,), jnp.int32)
+        for r in slot_req:
+            if r >= 0:
+                outputs[r] = []
+        for t in range(plen + gen_len):
+            feed = [0 if r < 0 else int(prompts[r, t]) if t < plen
+                    else int(tok[s]) for s, r in enumerate(slot_req)]
+            tok, state = step(jparams, state, jnp.asarray(feed, jnp.int32))
+            if t >= plen:
+                for s, r in enumerate(slot_req):
+                    if r >= 0:
+                        outputs[r].append(int(tok[s]))
+    return outputs
