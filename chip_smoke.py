@@ -7,7 +7,7 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; exits non-zero without them. Every phase prints one JSON line with
 its seconds, and any failure raises (non-zero exit, no result line):
 
-1. build the four CUDA sources of ``src/repro_torch/kernels/csrc/`` for
+1. build the five CUDA sources of ``src/repro_torch/kernels/csrc/`` for
    ``sm_90a``, one ``nvcc`` each, all started together; print each one's
    ``-Xptxas -v`` report and the card's name and power limit, in the
    build line and on a line of its own as ``nvidia-smi`` gives them;
@@ -32,6 +32,16 @@ its seconds, and any failure raises (non-zero exit, no result line):
    from the FLOPs and bytes the call needs, the achieved TFLOP/s and share
    of the bound, each kernel's device time, the scan's shared memory and
    both kernels' blocks per SM;
+   then the scan's backward kernel (``csrc/ssd_scan_bwd.cu``, its C Bᵀ
+   pre-pass and the backward) against autograd through the plain scan at
+   the training shapes of ``mamba2_370m`` (the same as phase 4's), at a
+   ragged 4,000 whose 96 pad rows (dt, x, B, C and dy 0) must get exactly
+   0 gradients, and at jamba's group shape (``ds`` 16, 128 heads of 64 in
+   one group): each of dx, ddt, dA, dB and dC within the forward's
+   tolerance, or, where summation order alone breaks it, at most twice
+   the float32 plain version's error to a float64 plain version (both
+   printed); times, the bound from the FLOPs and bytes, each kernel's
+   device time and blocks per SM;
 5. route-rate-drain kernel against its plain version, bit for bit (NaN
    where the plain version has NaN): random routes at the paper's 1D and
    2D shapes (almost no -1 in them), the engine's padded rows, and NaN
@@ -143,11 +153,34 @@ its seconds, and any failure raises (non-zero exit, no result line):
    next; ``jamba_v01_52b``'s scan launches equal its calls (7 Mamba
    layers) and the kernel holds to its plain version on its first Mamba
    layer's input (``ds`` 16, 128 heads of 64);
-14. the kernel summary line (each kernel's launches as read in the counted
+14. ``lm_encdec``: ``whisper_medium`` (24 encoder and 24 decoder layers,
+   1,500 frames) and ``internvl2_1b`` (24 layers, 256 patches) at full
+   width and depth, random float32 weights from seed 0, bfloat16
+   compute: a counted batched ``make_prefill_step`` with random frame or
+   patch embeddings (4 x 448 and 4 x (256 + 1,024) tokens; no
+   hand-written kernel is on this path, so every count stays 0), its
+   profile and time by part (encoder, cross-attention, self-attention,
+   MLP); whisper's ``prefill`` with the cross K/V cache, then decode; the
+   serve loop (4 slots, 8 requests, prompt 16, 24 generated; whisper with
+   each request's frames); forward against decode at least 95 % equal in
+   float32 over 2 x 64 tokens (whisper's biases at their initial zeros,
+   where the reference's cross K/V cache, which leaves them out, agrees
+   with its forward);
+15. ``lm_train``: ``mamba2_370m`` at full width and depth (48 layers,
+   remat, AdamW) through ``repro_torch.launch.train``'s step function on
+   its ``host_batch`` data (8 x 4,096 tokens a step), 5 steps with the
+   counts set to 0 before and read after: each step's loss finite and
+   the fifth's below the first's, the backward kernel 48 launches for 48
+   calls a step; a checkpoint of step 5 saved, restored into a fresh
+   state and stepped, bit for bit the uninterrupted sixth step (profiled);
+   a step at accum=2; then ``whisper_medium`` at full width, 3 steps of 4
+   x 448 tokens with 1,500 random frames; s a step, tokens/s, peak MiB;
+16. the kernel summary line (each kernel's launches as read in the counted
    windows, the simulator kernels' also on the trace's windows, the
    facade's run and the two paper fabrics, with their device ms on each
-   fabric's live pool, the SSD scan's also on ``lm_families``; its
-   largest error against its plain version), then the result line.
+   fabric's live pool, the SSD scan's also on ``lm_families``, its
+   backward's on ``lm_train``'s 5 steps; its largest error against its
+   plain version), then the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``); the card
 tests' input generators come from ``tests/test_torch_*_cuda.py``, which
@@ -156,6 +189,7 @@ import no JAX either.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -181,7 +215,8 @@ PAPER_FABRICS = (
 # ticks of each paper run compared between the card and the CPU path
 CARD_VS_CPU_TICKS = 128
 FABRIC_CARD_VS_CPU_TICKS = 64
-KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan")
+KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan",
+                  "ssd_scan_bwd")
 # the SSD kernel's tolerance against its plain version: an output sums
 # Q * ds = 16,384 float32 products whose partial sums are as large as the
 # largest output, so rounding error scales with max|plain|
@@ -2153,9 +2188,9 @@ PARTS = (("layers", "chunked_attention"), ("layers", "apply_mlp"),
          ("moe", "apply_moe"), ("mamba2", "mamba_forward"))
 
 
-def part_ms(fn):
+def part_ms(fn, parts=PARTS):
     """One call of ``fn`` with CUDA events recorded around every call of
-    each of ``PARTS`` and around the whole: the whole's ms and, for each
+    each of ``parts`` and around the whole: the whole's ms and, for each
     part, its calls, ms and share of the whole. A part's time runs from its first kernel's start to its
     last's end on the stream, idle gaps included, so it is device time
     only where the device is busy (a prefill step is, 97-99 %)."""
@@ -2175,7 +2210,7 @@ def part_ms(fn):
             return out
         return call
 
-    for mod_name, name in PARTS:
+    for mod_name, name in parts:
         mod = importlib.import_module(f"repro_torch.models.{mod_name}")
         saved.append((mod, name, getattr(mod, name)))
         setattr(mod, name, timed(name, getattr(mod, name)))
@@ -2188,15 +2223,15 @@ def part_ms(fn):
     finally:
         for mod, name, f in saved:
             setattr(mod, name, f)
-    parts = {}
+    sums = {}
     for name, a, b in marks:
-        entry = parts.setdefault(name, [0, 0.0])
+        entry = sums.setdefault(name, [0, 0.0])
         entry[0] += 1
         entry[1] += a.elapsed_time(b)
     whole = t0.elapsed_time(t1)
     return dict(whole_ms=whole, parts={
         k: dict(calls=n, ms=ms, share=ms / whole)
-        for k, (n, ms) in parts.items()})
+        for k, (n, ms) in sums.items()})
 
 
 def phase_lm_prefill_dense(dev, steps=3):
@@ -2245,7 +2280,7 @@ FAMILIES = (
     ("mistral_large_123b", 4, 4096),  # bfloat16 weights
     ("nemotron_4_340b", 2, 4096),  # squared ReLU, d_head 192, LayerNorm
     ("mixtral_8x22b", 4, 6144),  # 8 experts top-2; the 4,096-key window
-    ("granite_moe_3b_a800m", 32, 4096),  # 40 experts top-8, all layers
+    ("granite_moe_3b_a800m", 8, 4096),  # 40 experts top-8
     ("jamba_v01_52b", 8, 4096),  # one whole period: Mamba, attention, MoE
 )
 
@@ -2354,6 +2389,474 @@ def phase_lm_families(dev):
     return scan
 
 
+# ---------------------------------------------------------------------------
+# the SSD scan's backward against autograd through its plain version
+# ---------------------------------------------------------------------------
+
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# the backward's two CUDA kernels, as the profiler names them
+SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_kernel")
+
+
+def ssd_bwd_check(got, args, dy, what):
+    """Each output of the backward kernel against autograd through the
+    plain scan in float32: within SSD_RTOL |plain| + SSD_ATOL_OF_MAX
+    max|plain|, or, where summation order alone breaks that, its largest
+    error to a float64 plain version at most twice the float32 plain
+    version's. Returns, per output, both errors to float64 and the
+    largest difference from the float32 plain version."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain
+
+    want = ssd_scan_bwd_plain(*args, dy)
+    want64 = ssd_scan_bwd_plain(*(a.double() for a in args), dy.double())
+    rows = {}
+    for name, g, w, w64 in zip(SSD_BWD_NAMES, got, want, want64):
+        err = (g - w).abs()
+        within = bool((err <= SSD_RTOL * w.abs()
+                       + SSD_ATOL_OF_MAX * float(w.abs().max())).all())
+        e64 = float((g.double() - w64).abs().max())
+        p64 = float((w.double() - w64).abs().max())
+        need(bool(g.isfinite().all()) and (within or e64 <= 2 * p64),
+             f"ssd_scan_bwd {what} {name}: max diff {float(err.max())} "
+             f"beyond the tolerance, and {e64} from float64 against the "
+             f"plain version's {p64}")
+        rows[name] = dict(max_abs_err=float(err.max()), within_tol=within,
+                          kernel_err_f64=e64, plain_err_f64=p64)
+        del err
+    del want, want64
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_bwd_bound_ms(x, Bm):
+    """The least time for one backward call: its products (the causal
+    halves of dM, (dM ∘ L) B, (dM ∘ L)ᵀ C and (C Bᵀ ∘ L)ᵀ dy per row and
+    chunk, C Bᵀ's causal half once per group and chunk, and per row and
+    chunk B dh, dy h_inᵀ, (x·dt) dhᵀ, Cᵀ(exp(cs) ∘ dy) and the state
+    recomputation, Q·ds·hd each; the exp(cs) term of d cs is a row sum of
+    C ∘ (dy h_inᵀ), so C h_in is not needed) at the float32 rate, against
+    the inputs (x, dt, A, B, C, dy) read once and the outputs (dx, ddt,
+    dA, dB, dC) written once; the larger of the two."""
+    BH, nc, Q, hd = x.shape
+    G, ds = Bm.shape[0], Bm.shape[-1]
+    tri = Q * (Q + 1) // 2
+    flops = 2 * (G * nc * tri * ds
+                 + BH * nc * (tri * (2 * hd + 2 * ds) + 5 * Q * ds * hd))
+    moved = 4 * (3 * BH * nc * Q * hd          # x, dy; dx
+                 + 2 * BH * nc * Q + 2 * BH    # dt, A; ddt, dA
+                 + 4 * G * nc * Q * ds)        # B, C; dB, dC
+    by_ops = flops / FP32_OPS_PER_S * 1e3
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes
+            else "bytes", flops, moved)
+
+
+def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
+    """The backward kernel at the training shapes of ``mamba2_370m`` (8
+    sequences x 32 heads, 4,096 tokens, one group of B/C per sequence),
+    at a ragged 4,000 (the last chunk's 96 pad rows: dt, x, B, C and dy 0
+    there, every gradient of them exactly 0) and at jamba's group shape
+    (``ds`` 16, 128 heads of 64 sharing one group)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd_scan import (
+        ssd_scan_bwd_cuda, ssd_scan_bwd_occupancy, ssd_scan_bwd_plain)
+
+    t0 = time.perf_counter()
+    nc = S // Q
+
+    def dy_like(x, seed):
+        return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+            tuple(x.shape)).astype(np.float32), device=dev)
+
+    args = ssd_inputs(B * nh, B, nc, Q, hd, ds, 21, dev)
+    dy = dy_like(args[0], 22)
+    got = ssd_scan_bwd_cuda(*args, dy)
+    torch.cuda.synchronize()
+    main = ssd_bwd_check(got, args, dy, "train shapes")
+    del got
+    kernel_ms = time_ms(lambda: ssd_scan_bwd_cuda(*args, dy), reps=5,
+                        warmup=1)
+    plain_ms = time_ms(lambda: ssd_scan_bwd_plain(*args, dy), reps=3,
+                       warmup=1)
+    bound_ms, bound_by, flops, moved = ssd_bwd_bound_ms(args[0], args[3])
+    _, _, rows = device_profile(lambda: ssd_scan_bwd_cuda(*args, dy))
+    kernel_device_ms = {name: sum(r[0] for r in rows if name in r[2]) / 1e3
+                        for name in SSD_BWD_KERNELS}
+    del args, dy
+
+    # ragged: S = 4,000 padded to 32 chunks, the pad rows as the mixer
+    # makes them
+    pad = S - Sr
+    rng = np.random.default_rng(23)
+    raw = [a.cpu().numpy() for a in ssd_inputs(B * nh, B, nc, Q, hd, ds, 24,
+                                               "cpu")]
+    for i in (0, 1):  # x, dt
+        raw[i].reshape(B * nh, S, -1)[:, -pad:] = 0.0
+    for i in (3, 4):  # B, C
+        raw[i].reshape(B, S, -1)[:, -pad:] = 0.0
+    args = [torch.as_tensor(a, device=dev) for a in raw]
+    dy = torch.as_tensor(rng.standard_normal((B * nh, nc, Q, hd)).astype(
+        np.float32), device=dev)
+    dy.view(B * nh, S, hd)[:, -pad:] = 0.0
+    got = ssd_scan_bwd_cuda(*args, dy)
+    torch.cuda.synchronize()
+    for name, g in zip(SSD_BWD_NAMES, got):
+        if name != "dA":
+            tail = g.reshape(g.shape[0], S, -1)[:, -pad:]
+            need(bool((tail == 0).all()), f"ssd_scan_bwd ragged: {name} of "
+                 "the pad rows not 0")
+    ragged = ssd_bwd_check(got, args, dy, f"ragged S={Sr}")
+    del got, args, dy
+
+    # jamba's group shape: one group of B/C for 128 heads, ds 16
+    jargs = ssd_inputs(128, 1, nc, Q, 64, 16, 25, dev)
+    jdy = dy_like(jargs[0], 26)
+    jamba = ssd_bwd_check(ssd_scan_bwd_cuda(*jargs, jdy), jargs, jdy,
+                          "jamba group")
+    jamba_ms = time_ms(lambda: ssd_scan_bwd_cuda(*jargs, jdy), reps=5,
+                       warmup=1)
+    del jargs, jdy
+    torch.cuda.empty_cache()
+    err = max(r["max_abs_err"] for d in (main, ragged, jamba)
+              for r in d.values())
+    emit(dict(phase="ssd_scan_bwd_vs_plain", seconds=time.perf_counter() - t0,
+              BH=B * nh, groups=B, nc=nc, Q=Q, hd=hd, ds=ds, ragged_S=Sr,
+              rtol=SSD_RTOL, atol_of_max=SSD_ATOL_OF_MAX,
+              train_shapes=main, ragged=ragged, jamba_group=jamba,
+              kernel_ms=kernel_ms, plain_ms=plain_ms,
+              plain_is="autograd through ssd_scan_plain: its forward and "
+                       "backward",
+              bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+              bytes=moved, tflop_per_s=flops / 1e9 / kernel_ms,
+              share_of_bound=bound_ms / kernel_ms,
+              kernel_device_ms=kernel_device_ms, jamba_kernel_ms=jamba_ms,
+              occupancy=ssd_scan_bwd_occupancy(Q, hd, ds),
+              jamba_occupancy=ssd_scan_bwd_occupancy(Q, 64, 16)))
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder and vision-language serving
+# ---------------------------------------------------------------------------
+
+# what a step of an encoder-decoder or a VLM is split into (see part_ms);
+# the MLP's calls include the encoder's (inside ``encode``)
+ENCDEC_PARTS = (("model", "encode"), ("layers", "attention_cross"),
+                ("layers", "attention_train"), ("layers", "apply_mlp"))
+# (arch, batch, text tokens of the batched prefill)
+ENCDEC = (("whisper_medium", 4, 448), ("internvl2_1b", 4, 1024))
+
+
+def frontend_embeds(cfg, B, seed, dev):
+    """Random frame (encoder) or patch embeddings (B, P, d), float32."""
+    import numpy as np
+    import torch
+
+    P = cfg.enc_seq if cfg.enc_layers else cfg.num_patches
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (B, P, cfg.d_model)).astype(np.float32), device=dev)
+
+
+def encdec_agreement(params, cfg, tokens, frames, dev):
+    """The forward's greedy tokens against token-by-token decode (with
+    the cross K/V of ``frames`` for an encoder-decoder; text alone for the
+    VLM, whose decode has no patch path), as ``agreement``."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MDL
+
+    fe = frames if cfg.enc_layers else None
+    h, _ = MDL.forward_hidden(params, tokens, cfg, frontend_embeds=fe)
+    need(bool(h.float().isfinite().all()), f"{cfg.name}: hidden state not "
+         "finite")
+    full = torch.argmax(L.mask_padded_vocab(
+        L.logits_from_hidden(params, h, cfg).float(), cfg), dim=-1)
+    state = MDL.init_decode_state(cfg, tokens.shape[0], tokens.shape[1],
+                                  dtype=torch.float32, device=dev)
+    state, first = MDL.prefill(params, state, tokens[:, :1], cfg,
+                               frontend_embeds=fe)
+    preds = [first]
+    for t in range(1, tokens.shape[1]):
+        nxt, state = MDL.decode_step(params, state, tokens[:, t], cfg)
+        preds.append(nxt)
+    return float((torch.stack(preds, 1) == full).float().mean())
+
+
+def phase_lm_encdec(dev, steps=3):
+    """``whisper_medium`` and ``internvl2_1b`` at full width and depth:
+    a batched prefill with random frame or patch embeddings, whisper's
+    prefill with the cross K/V and decode, the serve loop, forward against
+    decode."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as MDL
+    from repro_torch.train.serve_step import make_prefill_step
+
+    for arch, B, S in ENCDEC:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        params = MDL.init_model(cfg, seed=0, device=dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        tokens = lm_tokens(cfg, B, S, 0, dev)
+        fe = frontend_embeds(cfg, B, 1, dev)
+        prefill = make_prefill_step(cfg)
+        prefill(params, tokens, fe)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        walls = []
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            out = prefill(params, tokens, fe)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        launches = {k: (ops.LAUNCHES[k], ops.CALLS[k]) for k in ops.KERNELS}
+        need(all(n == c == 0 for n, c in launches.values()),
+             f"{arch}: kernel calls {launches} (no hand-written kernel is on "
+             "this path)")
+        need(tuple(out.shape) == (B,) and bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()), f"{arch}: {out}")
+        step_s = sorted(walls)[len(walls) // 2]
+        prof, _ = step_profile(lambda: prefill(params, tokens, fe), top=5)
+        prof["parts"] = part_ms(lambda: prefill(params, tokens, fe),
+                                ENCDEC_PARTS)
+        line = dict(phase="lm_encdec", arch=arch, layers=cfg.n_layers,
+                    enc_layers=cfg.enc_layers, d_model=cfg.d_model,
+                    heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                    vocab=cfg.vocab_size, params=n_params,
+                    frontend=tuple(fe.shape), batch=B, text=S, steps=steps,
+                    step_s=walls,
+                    prefill_tokens_per_s=B * (S + cfg.num_patches) / step_s,
+                    peak_device_mib=peak_mib, first_tokens=out.tolist(),
+                    profile=prof)
+        if cfg.enc_layers:
+            # prefill with the cross K/V cache, then 8 greedy steps
+            state = MDL.init_decode_state(cfg, B, 24, dtype=torch.float32,
+                                          device=dev)
+            t1 = time.perf_counter()
+            state, tok = MDL.prefill(params, state, tokens[:, :16], cfg,
+                                     frontend_embeds=fe)
+            for _ in range(8):
+                tok, state = MDL.decode_step(params, state, tok, cfg)
+            torch.cuda.synchronize()
+            need(len(state["xkv"]) == cfg.n_periods
+                 and tuple(state["xkv"][0]["pos0"][0].shape)
+                 == (B, cfg.enc_seq, cfg.n_kv_heads, cfg.d_head),
+                 f"{arch}: cross K/V {state['xkv'][0]['pos0'][0].shape}")
+            line["prefill_xkv_then_decode_s"] = time.perf_counter() - t1
+        toks = lm_tokens(cfg, 2, 64, 1, dev)
+        frames = frontend_embeds(cfg, 2, 2, dev)
+        agree32 = encdec_agreement(params, cfg.replace(compute_dtype="float32"),
+                                   toks, frames, dev)
+        need(agree32 >= 0.95, f"{arch}: forward/decode agreement {agree32} "
+             "below 0.95 in float32")
+        line["agreement_f32"] = agree32
+        rng = np.random.default_rng(2)
+        prompts = rng.integers(0, cfg.vocab_size, (8, 16), dtype=np.int32)
+        frames = (rng.standard_normal((8, cfg.enc_seq, cfg.d_model)).astype(
+            np.float32) if cfg.enc_layers else None)
+        serve(params, cfg, prompts[:1], slots=4, gen_len=2,
+              frontend=None if frames is None else frames[:1], device=dev)
+        outputs, st = serve(params, cfg, prompts, slots=4, gen_len=24,
+                            frontend=frames, device=dev)
+        need(sorted(outputs) == list(range(8))
+             and all(len(v) == 24 and all(0 <= t < cfg.vocab_size for t in v)
+                     for v in outputs.values()), f"{arch}: serve outputs")
+        line.update(served_tokens=st["tokens"], serve_wall_s=st["wall_s"],
+                    served_tokens_per_s=st["tokens"] / st["wall_s"],
+                    decode_tokens_per_s=st["decode_steps"] * 4 / st["wall_s"],
+                    seconds=time.perf_counter() - t0)
+        emit(line)
+        del params
+        state = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# training on one card
+# ---------------------------------------------------------------------------
+
+def named_state(params, opt):
+    return dict({"p " + n: p for n, p in params.named_parameters()},
+                **{"m " + n: t for n, t in opt.m.items()},
+                **{"v " + n: t for n, t in opt.v.items()}, step=opt.step)
+
+
+def timed_step(step_fn, params, opt, *batch):
+    import torch
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, opt, m = step_fn(params, opt, *batch)
+    torch.cuda.synchronize()
+    return params, opt, {k: float(v) for k, v in m.items()}, \
+        time.perf_counter() - t1
+
+
+def phase_lm_train(dev, steps=5):
+    """``mamba2_370m`` at full width and depth (48 layers, remat, AdamW)
+    through ``repro_torch.launch.train``'s step function on its data (8 x
+    4,096 tokens a step), counted; a checkpoint of step 5 restored and
+    stepped, bit for bit the uninterrupted sixth step; one step at
+    accum=2; then ``whisper_medium`` at full width, 3 steps with frames."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    t0 = time.perf_counter()
+    args = TRAIN.parser().parse_args(
+        ["--arch", LM_ARCH, "--steps", str(steps + 1), "--global-batch", "8",
+         "--seq-len", "4096", "--device", "cuda"])
+    cfg, opt_cfg, dc, step_fn = TRAIN.build(args)
+    need(cfg.remat, f"{LM_ARCH}: remat off")
+    params, opt = init_state(cfg, opt_cfg, seed=0, device=dev)
+    batches = [device_batch(dc, s, dev) for s in range(steps + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, walls, per_step = [], [], []
+    for s in range(steps):
+        before = dict(ops.LAUNCHES), dict(ops.CALLS)
+        params, opt, m, wall = timed_step(step_fn, params, opt, *batches[s])
+        losses.append(m["loss"])
+        walls.append(wall)
+        per_step.append({k: (ops.LAUNCHES[k] - before[0][k],
+                             ops.CALLS[k] - before[1][k])
+                         for k in ("ssd_scan", "ssd_scan_bwd")})
+    launches = {k: ops.LAUNCHES[k] for k in ops.KERNELS}
+    calls = {k: ops.CALLS[k] for k in ops.KERNELS}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    for k in ops.KERNELS:
+        need(launches[k] == calls[k], f"lm_train: {k} {launches[k]} launches "
+             f"for {calls[k]} calls")
+    for s, c in enumerate(per_step):
+        need(c["ssd_scan_bwd"] == (cfg.n_layers, cfg.n_layers),
+             f"lm_train step {s + 1}: ssd_scan_bwd {c['ssd_scan_bwd']} "
+             f"(launches, calls), want {cfg.n_layers} each")
+    need(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+         f"lm_train: losses {losses}")
+    step_s = sorted(walls)[len(walls) // 2]
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t1 = time.perf_counter()
+        mgr.save(steps, (params, opt))
+        save_s = time.perf_counter() - t1
+        fresh = init_state(cfg, opt_cfg, seed=1, device=dev)
+        t1 = time.perf_counter()
+        (rp, ro), meta = mgr.restore(mgr.latest_step(), fresh)
+        restore_s = time.perf_counter() - t1
+    need(meta["step"] == steps, f"lm_train: restored step {meta}")
+    for k, t in named_state(params, opt).items():
+        need(torch.equal(t, named_state(rp, ro)[k]),
+             f"lm_train: restored {k} differs")
+    # the sixth step, uninterrupted and from the restored checkpoint,
+    # under the profiler for the uninterrupted one
+    out = {}
+
+    def sixth():
+        out["run"] = step_fn(params, opt, *batches[steps])
+        return out["run"]
+
+    _, wall_us, prows = device_profile(sixth)
+    busy_us = sum(r[0] for r in prows)
+    p6, o6, m6 = out["run"]
+    rp, ro, rm, _ = timed_step(step_fn, rp, ro, *batches[steps])
+    a, b = named_state(p6, o6), named_state(rp, ro)
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    need(same and float(m6["loss"]) == rm["loss"],
+         "lm_train: the step after restoring differs from the "
+         "uninterrupted sixth step")
+    del rp, ro, fresh, a, b
+    gc.collect()
+    # one step at accum=2 (two microbatches of 4)
+    step2 = make_train_step(cfg, opt_cfg, accum=2)
+    ops.reset_launches()
+    p6, o6, m7, wall7 = timed_step(step2, p6, o6, *batches[steps + 1])
+    need(math.isfinite(m7["loss"]) and ops.LAUNCHES["ssd_scan_bwd"]
+         == ops.CALLS["ssd_scan_bwd"] == 2 * cfg.n_layers,
+         f"lm_train accum=2: loss {m7['loss']}, ssd_scan_bwd "
+         f"{ops.LAUNCHES['ssd_scan_bwd']} launches")
+    tokens_per_step = dc.global_batch * dc.seq_len
+    bwd_us = sum(r[0] for r in prows if "ssd_bwd_kernel" in r[2]
+                 or "ssd_bwd_cb_kernel" in r[2])
+    line = dict(phase="lm_train", arch=LM_ARCH, layers=cfg.n_layers,
+                d_model=cfg.d_model, params=sum(p.numel()
+                                               for p in p6.parameters()),
+                remat=cfg.remat, batch=dc.global_batch, seq=dc.seq_len,
+                steps=steps, step_s=walls, tokens_per_s=tokens_per_step
+                / step_s, losses=losses, loss_step6=float(m6["loss"]),
+                loss_accum2=m7["loss"], accum2_step_s=wall7,
+                grad_norm_step6=float(m6["grad_norm"]),
+                launches=launches, calls=calls, ssd_scan_bwd_per_step=[
+                    c["ssd_scan_bwd"][0] for c in per_step],
+                peak_device_mib=peak_mib, ckpt_save_s=save_s,
+                ckpt_restore_s=restore_s, resume_bit_exact=same,
+                profile_step6=dict(wall_ms=wall_us / 1e3,
+                                   device_ms=busy_us / 1e3,
+                                   device_busy_share=busy_us / wall_us,
+                                   ssd_scan_bwd_ms=bwd_us / 1e3,
+                                   top=[dict(name=k[:70], ms=us / 1e3,
+                                             calls=c)
+                                        for us, c, k in prows[:8]]))
+    line["seconds_mamba"] = time.perf_counter() - t0
+    del params, opt, p6, o6, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # whisper_medium at full width: attention's and cross-attention's
+    # backward and the flash cross-entropy at vocab 51,865
+    t1 = time.perf_counter()
+    wcfg = get_config("whisper_medium")
+    wopt = adamw.OptConfig(lr=3e-4, total_steps=10, warmup_steps=1)
+    wp, wo = init_state(wcfg, wopt, seed=0, device=dev)
+    wstep = make_train_step(wcfg, wopt)
+    wdc = DataConfig(vocab_size=wcfg.vocab_size, seq_len=448, global_batch=4)
+    frames = frontend_embeds(wcfg, 4, 3, dev)
+    torch.cuda.reset_peak_memory_stats()
+    wl, ww = [], []
+    for s in range(3):
+        wp, wo, m, wall = timed_step(wstep, wp, wo, *device_batch(wdc, s, dev),
+                                     frames)
+        wl.append(m["loss"])
+        ww.append(wall)
+    need(all(math.isfinite(x) for x in wl), f"lm_train whisper: {wl}")
+    line["whisper"] = dict(layers=wcfg.n_layers, enc_layers=wcfg.enc_layers,
+                           batch=4, text=448, frames=wcfg.enc_seq,
+                           remat=wcfg.remat, step_s=ww, losses=wl,
+                           tokens_per_s=4 * 448 / sorted(ww)[1],
+                           peak_device_mib=torch.cuda.max_memory_allocated()
+                           / 2**20, seconds=time.perf_counter() - t1)
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    del wp, wo, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ssd_scan_bwd=launches["ssd_scan_bwd"], step_s=step_s)
+
+
 def free_engines() -> None:
     """Drop the cached engines and their captured graphs."""
     import gc
@@ -2409,6 +2912,7 @@ def main() -> int:
     rows, max_err = phase_kernel(dev)
     dem_rows = phase_link_demand(dev)
     ssd = phase_ssd(dev)
+    ssd_bwd = phase_ssd_bwd(dev)
     rtr = phase_router(dev)
     # each engine phase ends by clearing the engine cache, so that the
     # next one captures its own graphs with the device memory free
@@ -2440,6 +2944,10 @@ def main() -> int:
     del params
     free_engines()
     families_scan = phase_lm_families(dev)
+    free_engines()
+    phase_lm_encdec(dev)
+    free_engines()
+    train = phase_lm_train(dev)
 
     main_row, dem = rows[0], dem_rows[0]
     emit({"kernels": [
@@ -2487,6 +2995,17 @@ def main() -> int:
              library_ms=None,
              # jamba_v01_52b's counted prefill on lm_families (ds 16)
              families_launches=families_scan["launches"]),
+        dict(name="ssd_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+             # no TPU counterpart: the reference differentiates its jnp
+             # ssd_chunked, whose gradient this kernel computes
+             replaces="src/repro/models/mamba2.py:71",
+             tpu=None,
+             # lm_train's 5 counted steps of mamba2_370m (48 layers)
+             launches=train["ssd_scan_bwd"],
+             max_abs_err=ssd_bwd["max_abs_err"], ms=ssd_bwd["ms"],
+             plain_ms=ssd_bwd["plain_ms"], bound_ms=ssd_bwd["bound_ms"],
+             bound_by=ssd_bwd["bound_by"], library_ms=None),
         dict(name="router_rate_drain", route="cuda",
              source="src/repro_torch/kernels/csrc/router_tick.cu",
              replaces="src/repro/kernels/router_tick.py:48",

@@ -1,12 +1,10 @@
 """Architecture registry: one module per architecture the port serves.
 
-A copy of the JAX package's ``configs/__init__.py`` for the architectures
-ported so far: every decoder-only one. ``get_config(name)`` returns the
-full published config; ``get_smoke_config(name)`` a reduced same-family
-config for CPU tests (few layers, narrow width, tiny vocab, the same
-period structure). The encoder-decoder and the vision-language model of
-the JAX package's registry (``whisper_medium``, ``internvl2_1b``) are
-refused as not yet ported.
+A copy of the JAX package's ``configs/__init__.py``: every architecture
+of its registry is ported. ``get_config(name)`` returns the full
+published config; ``get_smoke_config(name)`` a reduced same-family config
+for CPU tests (few layers, narrow width, tiny vocab, the same period
+structure).
 """
 from __future__ import annotations
 
@@ -27,16 +25,7 @@ ARCH_IDS: List[str] = [
     "granite_moe_3b_a800m",
     "mixtral_8x22b",
 ]
-PORTED: List[str] = [
-    "mistral_nemo_12b",
-    "mistral_large_123b",
-    "command_r_35b",
-    "nemotron_4_340b",
-    "mamba2_370m",
-    "jamba_v01_52b",
-    "granite_moe_3b_a800m",
-    "mixtral_8x22b",
-]
+PORTED: List[str] = list(ARCH_IDS)
 
 
 # canonical dashed ids (CLI --arch accepts either form)
@@ -48,10 +37,6 @@ def _module(name: str):
     arch = canon(name)
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise ValueError(
-            f"architecture {name!r} is not yet ported to repro_torch "
-            f"(ported: {PORTED})")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

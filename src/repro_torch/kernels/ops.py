@@ -8,7 +8,10 @@ raise. There is no fallback from the kernel to the plain version.
 that launched the wrapper's kernels, once a call however many CUDA
 launches the call takes (a drain tick: zero, count, drain; link demand:
 zero, count, alloc, place, fold; an SSD scan: the C Bᵀ pre-pass and the
-scan; a route-rate-drain: one). A run on the card that went through the
+scan; its backward: its C Bᵀ pre-pass and the backward, plus the sums of
+dB and dC over a group's rows; a route-rate-drain: one). The SSD scan's
+backward is called by autograd, from the backward of a scan that ran on
+the card. A run on the card that went through the
 kernels every time shows ``LAUNCHES == CALLS``; :func:`reset_launches`
 sets every count to 0.
 """
@@ -21,9 +24,11 @@ from repro_torch.kernels.link_demand import (
     link_demand_cuda, link_demand_plain)
 from repro_torch.kernels.router_tick import (
     router_rate_drain_cuda, router_rate_drain_plain)
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (
+    SSDScan, ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_plain)
 
-KERNELS = ("drain_tick", "link_demand", "router_rate_drain", "ssd_scan")
+KERNELS = ("drain_tick", "link_demand", "router_rate_drain", "ssd_scan",
+           "ssd_scan_bwd")
 CALLS: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -81,11 +86,21 @@ def router_rate_drain(routes, bytes_rem, active, share, dt):
 
 
 def ssd_scan(x, dt, A, Bm, Cm):
-    """Head-flattened SSD chunk scan: (y, final state).
+    """Head-flattened SSD chunk scan: (y, final state), differentiable (on
+    the CPU by autograd through the plain version, on the card through
+    :func:`ssd_scan_bwd`).
 
     The JAX package's ``kernels.ops.ssd_scan`` with B/C given per group of
     rows (one group per row there); see :mod:`repro_torch.kernels.ssd_scan`
     for shapes.
     """
-    return _dispatch("ssd_scan", x.device, ssd_scan_plain, ssd_scan_cuda,
+    return _dispatch("ssd_scan", x.device, ssd_scan_plain, SSDScan.apply,
                      x, dt, A, Bm, Cm)
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh=None):
+    """The scan's gradients (dx, ddt, dA per row, dB, dC per group) against
+    dy and the final state's dh (None: zero). See
+    :mod:`repro_torch.kernels.ssd_scan`."""
+    return _dispatch("ssd_scan_bwd", x.device, ssd_scan_bwd_plain,
+                     ssd_scan_bwd_cuda, x, dt, A, Bm, Cm, dy, dh)

@@ -22,6 +22,21 @@ entering a chunk and cs = cumsum(dt * A) over the chunk's Q steps::
   them back. The source's header note gives the design and the bound on
   an H100.
 
+The gradient: on the CPU, autograd through :func:`ssd_scan_plain` (the
+path, and :func:`ssd_scan_bwd_plain`, the backward kernel's plain
+version). On the card :class:`SSDScan` (an autograd Function) runs
+:func:`ssd_scan_cuda` forward and ``ops.ssd_scan_bwd`` backward, which
+launches ``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd_cuda`; no TPU kernel
+corresponds: the JAX package differentiates its jnp scan). A backward
+call is two CUDA kernels: a pre-pass that writes C Bᵀ of each group and
+chunk in both layouts, then one block per row that recomputes the states
+entering the chunks into scratch and walks the chunks in reverse. dB and
+dC come per row, (BH, nc, Q, ds); the wrapper sums a group's rows (no
+atomics, so a call repeats bit for bit). Its scratch at the training
+shapes of ``mamba2_370m`` (BH = 256 in 8 groups, nc = 32, Q = 128, hd =
+64, ds = 128): 1.07 GB for the per-row dB and dC, 268 MB for the states,
+34 MB for C Bᵀ.
+
 Shapes (all float32): x (BH, nc, Q, hd); dt (BH, nc, Q); A (BH,);
 Bm, Cm (G, nc, Q, ds) with G dividing BH: row ``bh`` reads group
 ``bh // (BH // G)``. The JAX package passes one group per row (G = BH);
@@ -64,8 +79,11 @@ def ssd_scan_plain(x, dt, A, Bm, Cm):
         Cc = Cm[:, c, None]
         cs = torch.cumsum(dtc * Ag, dim=-1)
         seg = torch.exp(cs[..., -1])
-        L = torch.where(tri, torch.exp(cs[..., :, None] - cs[..., None, :]),
-                        0.0)
+        # masked before the exp (exp(-inf) = 0): above the diagonal
+        # cs_t - cs_s > 0 can overflow, and autograd through a where after
+        # the exp would give 0 * inf = NaN there
+        L = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :],
+                                  float("-inf")))
         CB = Cc @ Bc.transpose(-1, -2)  # (G, 1, Q, Q)
         xdt = xg[:, :, c] * dtc[..., None]
         y_intra = (CB * L) @ xdt
@@ -149,3 +167,120 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm):
             f"ssd_scan kernel launch failed: {msg} ({err}); Q={Q}, hd={hd}, "
             f"ds={ds} need {smem(Q, hd, ds)} bytes of shared memory a block")
     return y, h
+
+
+def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh=None):
+    """The gradients (dx, ddt, dA, dB, dC) of :func:`ssd_scan_plain` at
+    these inputs against dy (and dh of the final state, or none), by
+    autograd: the plain version of the backward kernel."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        y, h = ssd_scan_plain(*ins)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            grads.append(dh)
+        return tuple(torch.autograd.grad(outs, ins, grads))
+
+
+@functools.cache
+def _bwd_entry_points():
+    lib = _build.load("ssd_scan_bwd")
+    launch = lib.ssd_scan_bwd_launch
+    launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p] * 6
+    launch.restype = ctypes.c_int
+    smem = lib.ssd_scan_bwd_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_size_t
+    occupancy = lib.ssd_scan_bwd_blocks_per_sm
+    occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    occupancy.restype = ctypes.c_int
+    error_string = lib.ssd_scan_bwd_error_string
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+    return launch, smem, occupancy, error_string
+
+
+def ssd_scan_bwd_occupancy(Q, hd, ds):
+    """The backward block's bytes of dynamic shared memory, and the blocks
+    of the backward and of its C Bᵀ pre-pass that one SM holds at once."""
+    _, smem, occupancy, error_string = _bwd_entry_points()
+    bwd, pre = ctypes.c_int(0), ctypes.c_int(0)
+    err = occupancy(Q, hd, ds, ctypes.byref(bwd), ctypes.byref(pre))
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd occupancy query failed: "
+                           f"{error_string(err).decode()} ({err})")
+    return dict(bwd_smem_bytes=smem(Q, hd, ds), bwd_blocks_per_sm=bwd.value,
+                prepass_blocks_per_sm=pre.value)
+
+
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None):
+    """Launch the backward's pre-pass and kernel on the current stream (no
+    synchronisation); returns (dx, ddt, dA, dB, dC) with dB and dC summed
+    over each group's rows. Raises on a tensor the kernel does not take and
+    on a launch the driver refuses."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd_cuda needs CUDA tensors, got {dev}")
+    BH, nc, Q, hd = x.shape
+    ds = Bm.shape[-1]
+    G, hpg = _groups(x, Bm)
+    f32 = torch.float32
+    dy = dy.contiguous()
+    if dh is not None:
+        dh = dh.contiguous()
+    checks = [(x, "x", (BH, nc, Q, hd)), (dt, "dt", (BH, nc, Q)),
+              (A, "A", (BH,)), (Bm, "Bm", (G, nc, Q, ds)),
+              (Cm, "Cm", (G, nc, Q, ds)), (dy, "dy", (BH, nc, Q, hd))]
+    if dh is not None:
+        checks.append((dh, "dh", (BH, ds, hd)))
+    for t, name, shape in checks:
+        _build.check_tensor("ssd_scan_bwd", t, name, f32, shape, dev)
+    launch, smem, _, error_string = _bwd_entry_points()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    dx, ddt, dA = empty(BH, nc, Q, hd), empty(BH, nc, Q), empty(BH)
+    dB_rows, dC_rows = empty(BH, nc, Q, ds), empty(BH, nc, Q, ds)
+    cb_ts, cb_st = empty(G, nc, Q, Q), empty(G, nc, Q, Q)  # scratch
+    hs = empty(BH, nc, ds, hd)  # scratch: the states entering the chunks
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = _build.ptr
+    err = launch(p(x), p(dt), p(A), p(Bm), p(Cm), p(dy),
+                 p(dh) if dh is not None else None, p(cb_ts), p(cb_st), p(hs),
+                 BH, nc, Q, hd, ds, hpg, p(dx), p(ddt), p(dA), p(dB_rows),
+                 p(dC_rows), ctypes.c_void_p(stream))
+    if err != 0:
+        msg = error_string(err).decode()
+        raise RuntimeError(
+            f"ssd_scan_bwd kernel launch failed: {msg} ({err}); Q={Q}, "
+            f"hd={hd}, ds={ds} need {smem(Q, hd, ds)} bytes of shared "
+            "memory a block")
+    if hpg > 1:
+        dB_rows = dB_rows.view(G, hpg, nc, Q, ds).sum(dim=1)
+        dC_rows = dC_rows.view(G, hpg, nc, Q, ds).sum(dim=1)
+    return dx, ddt, dA, dB_rows, dC_rows
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan on the card with its gradient: :func:`ssd_scan_cuda`
+    forward, ``ops.ssd_scan_bwd`` (the backward kernel, counted) backward.
+    Returns (y, final state h) as the kernel does."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return ssd_scan_cuda(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        from repro_torch.kernels import ops
+
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh)

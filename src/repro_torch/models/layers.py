@@ -1,15 +1,19 @@
-"""Core model layers the ported families need (functions over tensors).
+"""Core model layers (functions over tensors).
 
-The PyTorch counterpart of the part of the JAX package's
-``models/layers.py`` that decoders use: dtypes, initialisers, RMSNorm and
-LayerNorm, rotary embeddings, attention (the chunked online-softmax
-forward for a full sequence, single-token decode against a KV cache), the
-dense MLPs, the embedding and the tied or untied unembedding.
-``cfg.compute_dtype`` is used inside the projections; normalisation,
-softmax and RoPE run in float32, and so do the attention score and PV
-products unless ``cfg.attn_bf16``. The sharding constraints of the
-reference are no-ops on one device and are not ported; the chunked
-cross-entropies and attention's backward come with training.
+The PyTorch counterpart of the JAX package's ``models/layers.py``: dtypes,
+initialisers, RMSNorm and LayerNorm, rotary embeddings, attention (causal,
+bidirectional and cross, as a chunked online-softmax forward with the
+reference's recomputing backward; single-token decode against a KV
+cache), the dense MLPs, the embedding, the tied or untied unembedding and
+the two cross-entropies (chunked, and the flash one with its recomputing
+backward). ``cfg.compute_dtype`` is used inside the projections;
+normalisation, softmax and RoPE run in float32, and so do the attention
+score and PV products unless ``cfg.attn_bf16``. The sharding constraints
+of the reference are no-ops on one device and are not ported.
+
+Parameters are built frozen (``requires_grad=False``), so that serving
+records no autograd graph; the train step turns gradients on for the
+model it trains (``repro_torch.train.train_step.init_state``).
 """
 from __future__ import annotations
 
@@ -167,6 +171,36 @@ def _mm_operand(x, bf16: bool):
     return x.to(torch.bfloat16).float() if bf16 else x
 
 
+def _grouped(t, Hkv):
+    """(B, S, H, dh) -> (B, Hkv, rep·S, dh): query head h = g·rep + r in
+    group g, row r·S + s."""
+    B, S, H, dh = t.shape
+    rep = H // Hkv
+    return t.reshape(B, S, Hkv, rep, dh).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, rep * S, dh)
+
+
+def _ungrouped(t, S):
+    """The inverse of :func:`_grouped`: (B, Hkv, rep·S, dh) -> (B, S, H, dh)."""
+    B, Hkv, RS, dh = t.shape
+    rep = RS // S
+    return t.reshape(B, Hkv, rep, S, dh).permute(0, 3, 1, 2, 4).reshape(
+        B, S, Hkv * rep, dh)
+
+
+def _chunk_scores(qg, kb, kvv, sl, c, chunk, Sq, rep, causal, window,
+                  scale):
+    """Chunk ``c``'s (keys ``sl``) scaled scores (B, Hkv, rep, Sq, chunk)
+    float32 from the grouped queries and the chunk's keys kb (B, Hkv, dh,
+    chunk), ``NEG_INF`` where the key is masked."""
+    B, Hkv = qg.shape[0], qg.shape[1]
+    s = (qg @ kb).mul_(scale).view(B, Hkv, rep, Sq, chunk)
+    q_pos = torch.arange(Sq, device=qg.device)
+    k_pos = c * chunk + torch.arange(chunk, device=qg.device)
+    mask = _chunk_mask(kvv[:, sl], k_pos, q_pos, causal, window)
+    return s.masked_fill_(~mask[:, None, None], NEG_INF)
+
+
 def _flash_fwd(q, kp, vp, kvv, causal: bool, window: int, chunk: int,
                mm_bf16: bool):
     """The reference's ``_flash_fwd_scan`` as a loop over key chunks.
@@ -175,16 +209,15 @@ def _flash_fwd(q, kp, vp, kvv, causal: bool, window: int, chunk: int,
     ``chunk``; kvv: (B, Skv) bool. Query head h reads KV head h // rep
     (``jnp.repeat`` along heads): the queries are grouped by KV head,
     (B, Hkv, rep·Sq, dh), so each KV chunk is read once per group and
-    never repeated. Returns o (B, Sq, H, dh) float32.
+    never repeated. Returns o (B, Sq, H, dh) float32 and the softmax's
+    log-sum-exp ``lse`` (B, Hkv, rep, Sq) float32.
     """
     B, Sq, H, dh = q.shape
     Hkv = kp.shape[2]
     rep = H // Hkv
     scale = 1.0 / math.sqrt(dh)
     n_chunks = kp.shape[1] // chunk
-    qg = _mm_operand(q, mm_bf16).reshape(B, Sq, Hkv, rep, dh).permute(
-        0, 2, 3, 1, 4).reshape(B, Hkv, rep * Sq, dh)
-    q_pos = torch.arange(Sq, device=q.device)
+    qg = _grouped(_mm_operand(q, mm_bf16), Hkv)
     m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
@@ -194,10 +227,8 @@ def _flash_fwd(q, kp, vp, kvv, causal: bool, window: int, chunk: int,
         sl = slice(c * chunk, (c + 1) * chunk)
         kb = _mm_operand(kp[:, sl], mm_bf16).permute(0, 2, 3, 1)  # B,g,d,k
         vb = _mm_operand(vp[:, sl], mm_bf16).permute(0, 2, 1, 3)  # B,g,k,d
-        s = (qg @ kb).mul_(scale).view(B, Hkv, rep, Sq, chunk)
-        k_pos = c * chunk + torch.arange(chunk, device=q.device)
-        mask = _chunk_mask(kvv[:, sl], k_pos, q_pos, causal, window)
-        s.masked_fill_(~mask[:, None, None], NEG_INF)
+        s = _chunk_scores(qg, kb, kvv, sl, c, chunk, Sq, rep, causal, window,
+                          scale)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = s.sub_(m_new[..., None]).exp_()
         corr = torch.exp(m - m_new)
@@ -207,7 +238,62 @@ def _flash_fwd(q, kp, vp, kvv, causal: bool, window: int, chunk: int,
         m = m_new
     l = torch.clamp(l, min=1e-30)
     o = acc.view(B, Hkv, rep, Sq, dh) / l[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh)
+    return _ungrouped(o.view(B, Hkv, rep * Sq, dh), Sq), m + torch.log(l)
+
+
+def _flash_bwd(do, q, kp, vp, kvv, o, lse, causal: bool, window: int,
+               chunk: int, mm_bf16: bool):
+    """The reference's ``_flash_attn_bwd``: each chunk's probabilities are
+    recomputed from the saved ``lse`` (O(S·chunk) live memory, not
+    autograd's O(S²)), and the GQA query heads fold back onto their KV
+    head through the grouped layout. Returns float32 dq (B, Sq, H, dh),
+    dk and dv (B, Skv, Hkv, dh)."""
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = kp.shape[1], kp.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = _grouped(_mm_operand(q, mm_bf16), Hkv)
+    dog = _grouped(_mm_operand(do, mm_bf16), Hkv)
+    delta = (do.float() * o).sum(dim=-1)  # (B, Sq, H)
+    delta = delta.reshape(B, Sq, Hkv, rep).permute(0, 2, 3, 1)[..., None]
+    dq = torch.zeros((B, Hkv, rep * Sq, dh), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.empty((B, Skv, Hkv, dh), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for c in range(Skv // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        kb = _mm_operand(kp[:, sl], mm_bf16).permute(0, 2, 3, 1)  # B,g,d,k
+        vb = _mm_operand(vp[:, sl], mm_bf16).permute(0, 2, 3, 1)  # B,g,d,k
+        s = _chunk_scores(qg, kb, kvv, sl, c, chunk, Sq, rep, causal, window,
+                          scale)
+        p = s.sub_(lse[..., None]).exp_()  # exact probabilities
+        dp = (dog @ vb).view(B, Hkv, rep, Sq, chunk)
+        dsm = _mm_operand(p * (dp - delta), mm_bf16).view(
+            B, Hkv, rep * Sq, chunk)
+        dq = dq + scale * (dsm @ kb.transpose(-1, -2))
+        dk[:, sl] = (scale * (dsm.transpose(-1, -2) @ qg)).permute(0, 2, 1, 3)
+        pm = _mm_operand(p, mm_bf16).view(B, Hkv, rep * Sq, chunk)
+        dv[:, sl] = (pm.transpose(-1, -2) @ dog).permute(0, 2, 1, 3)
+    return _ungrouped(dq, Sq), dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_attn`` (a ``custom_vjp``): the chunked
+    forward, and a backward that recomputes each chunk's scores."""
+
+    @staticmethod
+    def forward(ctx, q, kp, vp, kvv, causal, window, chunk, mm_bf16):
+        o, lse = _flash_fwd(q, kp, vp, kvv, causal, window, chunk, mm_bf16)
+        ctx.static = (causal, window, chunk, mm_bf16)
+        ctx.save_for_backward(q, kp, vp, kvv, o, lse)
+        return o.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, kp, vp, kvv, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(do, q, kp, vp, kvv, o, lse, *ctx.static)
+        return (dq.to(q.dtype), dk.to(kp.dtype), dv.to(vp.dtype), None, None,
+                None, None, None)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -215,12 +301,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_valid: Optional[torch.Tensor] = None,
                       chunk: int = KV_CHUNK,
                       matmul_bf16: bool = False) -> torch.Tensor:
-    """Online-softmax attention over KV chunks (the forward of the
-    reference's flash attention). q: (B, Sq, H, dh); k, v: (B, Skv, Hkv,
-    dh); kv_valid: optional (B, Skv) bool. Keys are padded to a multiple
-    of the chunk and masked; masked scores are ``NEG_INF``, not -inf, so a
-    row with no valid key averages the values (as the reference does).
-    Returns (B, Sq, H, dh) in q's dtype."""
+    """Flash attention: online softmax over KV chunks, with the
+    reference's recomputing backward. q: (B, Sq, H, dh); k, v: (B, Skv,
+    Hkv, dh); kv_valid: optional (B, Skv) bool. Keys are padded to a
+    multiple of the chunk and masked; masked scores are ``NEG_INF``, not
+    -inf, so a row with no valid key averages the values (as the
+    reference does). Returns (B, Sq, H, dh) in q's dtype."""
     B, Sq, H, dh = q.shape
     Skv = k.shape[1]
     chunk = min(chunk, Skv)
@@ -233,9 +319,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     if kv_valid is not None:
         kvv = F.pad(kv_valid, (0, pad)) & kvv
-    o = _flash_fwd(q, k, v, kvv, bool(causal), int(window), int(chunk),
-                   bool(matmul_bf16))
-    return o.to(q.dtype)
+    return _FlashAttention.apply(q, k, v, kvv, bool(causal), int(window),
+                                 int(chunk), bool(matmul_bf16))
 
 
 def attention_train(p, x, cfg: ModelConfig, positions=None):
@@ -252,6 +337,29 @@ def attention_train(p, x, cfg: ModelConfig, positions=None):
     cdt = _dtype(cfg.compute_dtype)
     o = o.reshape(B, S, cfg.d_qkv).to(cdt) @ p.wo.to(cdt)
     return o, (k, v)
+
+
+def attention_bidir(p, x, cfg: ModelConfig):
+    """Bidirectional self-attention (the encoder), with RoPE on the frames
+    as the reference applies it."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = chunked_attention(q, k, v, causal=False, matmul_bf16=cfg.attn_bf16)
+    cdt = _dtype(cfg.compute_dtype)
+    return o.reshape(B, S, cfg.d_qkv).to(cdt) @ p.wo.to(cdt)
+
+
+def attention_cross(p, x, enc_out, cfg: ModelConfig):
+    """Cross-attention from the decoder's x to the encoder's output (no
+    RoPE; K and V with their biases)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, enc_out, cfg)
+    o = chunked_attention(q, k, v, causal=False, matmul_bf16=cfg.attn_bf16)
+    cdt = _dtype(cfg.compute_dtype)
+    return o.reshape(B, S, cfg.d_qkv).to(cdt) @ p.wo.to(cdt)
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, ctx: int,
@@ -347,18 +455,21 @@ def apply_mlp(p, x, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------------
-# embedding / logits
+# embedding / logits / loss
 # --------------------------------------------------------------------------
 
 def embed_tokens(emb, tokens, cfg: ModelConfig):
-    return emb[tokens.long()].to(_dtype(cfg.compute_dtype))
+    """The rows of ``emb`` at ``tokens``, in the compute dtype. A gather
+    through ``F.embedding``, whose backward on the card sums each row's
+    gradient in a fixed order (indexing's ``index_put_`` accumulates with
+    atomics), so that a train step repeats bit for bit."""
+    return F.embedding(tokens.long(), emb).to(_dtype(cfg.compute_dtype))
 
 
 def logits_from_hidden(params, h, cfg: ModelConfig):
     """Logits through the tied embedding or the untied ``unembed``."""
     cdt = _dtype(cfg.compute_dtype)
-    w = params.embed.t() if cfg.tie_embeddings else params.unembed
-    return h.to(cdt) @ w.to(cdt)  # (.., d) @ (d, V)
+    return h.to(cdt) @ _unembedding(params, cfg).to(cdt)  # (.., d) @ (d, V)
 
 
 def mask_padded_vocab(logits, cfg: ModelConfig, fill=NEG_INF):
@@ -369,3 +480,120 @@ def mask_padded_vocab(logits, cfg: ModelConfig, fill=NEG_INF):
     return torch.where(ids < cfg.vocab_size, logits,
                        torch.tensor(fill, dtype=logits.dtype,
                                     device=logits.device))
+
+
+def _unembedding(params, cfg: ModelConfig):
+    """The (d, Vp) matrix the logits are taken with."""
+    return params.embed.t() if cfg.tie_embeddings else params.unembed
+
+
+def cross_entropy_chunked(params, h, targets, cfg: ModelConfig,
+                          chunk: int = 512):
+    """Memory-bounded LM loss: the mean NLL over targets >= 0, in chunks
+    of the sequence (the batch stays leading), differentiated by autograd.
+    Applies ``cfg.logit_softcap``."""
+    B, S, d = h.shape
+    chunk = min(chunk, S)
+    n_chunks = (S + chunk - 1) // chunk
+    pad = n_chunks * chunk - S
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    for c in range(n_chunks):
+        hi = h[:, c * chunk:(c + 1) * chunk]
+        ti = targets[:, c * chunk:(c + 1) * chunk]
+        logits = logits_from_hidden(params, hi, cfg).float()
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        logits = mask_padded_vocab(logits, cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, ti.clamp(min=0).long()[..., None])[..., 0]
+        valid = ti >= 0
+        tot = tot + torch.where(valid, lse - tgt, 0.0).sum()
+        cnt = cnt + valid.sum(dtype=torch.int32)
+    return tot / torch.clamp(cnt, min=1)
+
+
+def _ce_logits(hi, w, vocab_size: int, cdt):
+    """One chunk's float32 logits, the vocabulary's padding at NEG_INF."""
+    logits = (hi.to(cdt) @ w.to(cdt)).float()
+    logits[..., vocab_size:] = NEG_INF
+    return logits
+
+
+def _ce_chunks(h, targets, chunk: int):
+    """h and targets padded to whole chunks (padding targets -1)."""
+    S = h.shape[1]
+    pad = -S % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    return h, targets, (S + pad) // chunk
+
+
+class _FlashCrossEntropy(torch.autograd.Function):
+    """The reference's ``flash_cross_entropy`` (a ``custom_vjp``): the sum
+    of token NLLs, saving only each chunk's log-sum-exp; the backward
+    recomputes each chunk's logits, so the (S, V) logits never persist."""
+
+    @staticmethod
+    def forward(ctx, h, w, targets, vocab_size, chunk, cdt_name):
+        cdt = _dtype(cdt_name)
+        chunk = min(chunk, h.shape[1])
+        hc, tc, n_chunks = _ce_chunks(h, targets, chunk)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        lses = []
+        for c in range(n_chunks):
+            hi = hc[:, c * chunk:(c + 1) * chunk]
+            ti = tc[:, c * chunk:(c + 1) * chunk]
+            logits = _ce_logits(hi, w, vocab_size, cdt)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, ti.clamp(min=0).long()[..., None])[..., 0]
+            tot = tot + torch.where(ti >= 0, lse - tgt, 0.0).sum()
+            lses.append(lse)
+        ctx.static = (vocab_size, chunk, cdt)
+        ctx.save_for_backward(h, w, targets, torch.stack(lses))
+        return tot
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, targets, lses = ctx.saved_tensors
+        vocab_size, chunk, cdt = ctx.static
+        B, S, d = h.shape
+        hc, tc, n_chunks = _ce_chunks(h, targets, chunk)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dhs = []
+        for c in range(n_chunks):
+            hi = hc[:, c * chunk:(c + 1) * chunk]
+            ti = tc[:, c * chunk:(c + 1) * chunk]
+            logits = _ce_logits(hi, w, vocab_size, cdt)
+            p = logits.sub_(lses[c][..., None]).exp_()  # softmax
+            # dL/dlogits = (p - onehot(target)) * valid * g
+            idx = ti.clamp(min=0).long()[..., None]
+            dlog = p.scatter_(-1, idx, p.gather(-1, idx) - 1.0)
+            dlog = dlog.mul_((ti >= 0).float()[..., None]).mul_(g)
+            dlog = dlog.to(cdt)
+            dhs.append(dlog @ w.to(cdt).t())
+            dw = dw + (hi.to(cdt).reshape(-1, d).t()
+                       @ dlog.reshape(-1, dlog.shape[-1])).float()
+        dh = torch.cat(dhs, dim=1)[:, :S]
+        return dh.to(h.dtype), dw.to(w.dtype), None, None, None, None
+
+
+def flash_cross_entropy(h, w, targets, vocab_size: int, chunk: int,
+                        compute_dtype: str):
+    """Sum of token NLLs. h: (B,S,d), w: (d,Vp), targets: (B,S) (-1 =
+    pad); logits in ``compute_dtype`` products, chunks of ``chunk``
+    positions."""
+    return _FlashCrossEntropy.apply(h, w, targets, vocab_size, chunk,
+                                    compute_dtype)
+
+
+def lm_loss_flash(params, h, targets, cfg: ModelConfig, chunk: int = 512):
+    """Mean NLL via the recomputing flash cross-entropy (the train step's
+    loss)."""
+    tot = flash_cross_entropy(h, _unembedding(params, cfg), targets,
+                              cfg.vocab_size, chunk, cfg.compute_dtype)
+    return tot / torch.clamp((targets >= 0).sum(), min=1)

@@ -1,1 +1,1 @@
-"""Serving steps of the language-model stack."""
+"""Training and serving steps of the language-model stack."""

@@ -17,8 +17,9 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens):
-        return MDL.prefill_forward(params, tokens, cfg)
+    def prefill_step(params, tokens, frontend=None):
+        return MDL.prefill_forward(params, tokens, cfg,
+                                   frontend_embeds=frontend)
 
     return prefill_step
 

@@ -171,7 +171,8 @@ def test_each_source_names_its_own_flags():
     from repro_torch.kernels import _build
 
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["drain_tick", "link_demand", "router_tick", "ssd_scan"]
+    assert sources == ["drain_tick", "link_demand", "router_tick", "ssd_scan",
+                       "ssd_scan_bwd"]
     for name in sources:
         flags = _build.source_flags(name)
         assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS

@@ -172,16 +172,18 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_unported_architectures_raise():
-    """Only the encoder-decoder and the vision-language model wait."""
-    from repro_torch.configs import PORTED, get_config
+    """Every architecture of the registry is ported (the encoder-decoder
+    and the vision-language model since they came with cross-attention
+    and patch embeddings); an unknown one raises."""
+    from repro_torch.configs import ARCH_IDS, PORTED, get_config
 
+    assert PORTED == ARCH_IDS
     for arch in ("whisper_medium", "internvl2_1b"):
-        assert arch not in PORTED
-        with pytest.raises(ValueError, match="not yet ported"):
-            get_config(arch)
+        assert get_config(arch).name == arch.replace("_", "-")
     with pytest.raises(ValueError, match="unknown architecture"):
         get_config("llama_7b")
     cfg = get_smoke_config(ARCH)
     for extra in (dict(enc_layers=2, enc_seq=24), dict(num_patches=8)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            MDL.init_model(cfg.replace(**extra), device="cpu")
+        model = MDL.init_model(cfg.replace(**extra), device="cpu")
+        assert hasattr(model, "enc_layers") == ("enc_layers" in extra)
+        assert hasattr(model, "patch_proj") == ("num_patches" in extra)

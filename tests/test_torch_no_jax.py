@@ -5,7 +5,7 @@
 * No source file of the port names either in an import.
 * An entry point called without ``device="cpu"`` on a machine without a
   card raises instead of running on the CPU: the scenario and LM entry
-  points, the experiment facade ``repro_torch.union.run`` and the front
+  points (serving and training), the experiment facade ``repro_torch.union.run`` and the front
   doors over it (the CLI, the ensemble shims, a server's job).
 """
 import os
@@ -36,7 +36,10 @@ for name in ("union.experiment", "union.planner", "union.report",
              "netsim.fabric.fat_tree", "netsim.fabric.torus",
              "union.ensemble", "union.cli", "union.__main__",
              "union.client", "union.serve", "union.serve.server",
-             "union.serve.__main__", "core.eventgen", "models.moe"):
+             "union.serve.__main__", "core.eventgen", "models.moe",
+             "models.convert", "optim.adamw", "train.train_step",
+             "data.pipeline", "checkpoint.manager", "launch.train",
+             "configs.whisper_medium", "configs.internvl2_1b"):
     assert "repro_torch." + name in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -66,7 +69,9 @@ def test_no_port_source_imports_jax_or_repro():
                 "union/ensemble.py", "union/cli.py", "union/__main__.py",
                 "union/client.py", "union/serve/__init__.py",
                 "union/serve/__main__.py", "union/serve/server.py",
-                "core/eventgen.py", "models/moe.py"):
+                "core/eventgen.py", "models/moe.py", "optim/adamw.py",
+                "train/train_step.py", "data/pipeline.py",
+                "checkpoint/manager.py", "launch/train.py"):
         assert PORT / rel in files, rel
     hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
             for p in files for m in IMPORT.finditer(p.read_text())]
@@ -160,6 +165,16 @@ def test_lm_entry_points_raise_without_a_card(no_card):
         make_decode_state(cfg, 2, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "mamba2_370m", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "whisper_medium", "--smoke"])
+    from repro_torch.launch import train
+    from repro_torch.train.train_step import init_state
+    from repro_torch.optim.adamw import OptConfig
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "mamba2_370m", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(cfg, OptConfig())
     # and with the CPU asked for, a prefill step runs
     params = MDL.init_model(cfg, device="cpu")
     tok = MDL.prefill_forward(params, torch.zeros((1, 5), dtype=torch.int32),

@@ -137,10 +137,15 @@ def assert_cells_match(got_cells, want_cells):
         assert not bad, bad[:10]
 
 
-def jax_serve(step, jparams, jcfg, prompts, slots, gen_len):
+def jax_serve(step, jparams, jcfg, prompts, slots, gen_len, frontend=None,
+              encode=None):
     """The JAX package's serve loop (``repro/launch/serve.py``) on given
     weights and prompts, through ``step`` (a jitted ``decode_step``):
-    each request's generated tokens."""
+    each request's generated tokens. With ``frontend`` (an encoder-
+    decoder's per-request frames) and ``encode`` (a jitted function of
+    (params, frames) to the reference's cross K/V), each wave's decode
+    state gets its slots' cross K/V, idle slots zero frames, which the
+    reference's loop leaves out."""
     import jax.numpy as jnp
     from repro.models import model as JMDL
 
@@ -151,6 +156,12 @@ def jax_serve(step, jparams, jcfg, prompts, slots, gen_len):
         slot_req = [queue.pop(0) if queue else -1 for _ in range(slots)]
         state = JMDL.init_decode_state(jcfg, slots, plen + gen_len,
                                        dtype=jnp.float32)
+        if frontend is not None:
+            frames = np.zeros((slots,) + frontend.shape[1:], np.float32)
+            for s, r in enumerate(slot_req):
+                if r >= 0:
+                    frames[s] = frontend[r]
+            state["xkv"] = encode(jparams, jnp.asarray(frames))
         tok = jnp.zeros((slots,), jnp.int32)
         for r in slot_req:
             if r >= 0:
@@ -164,3 +175,18 @@ def jax_serve(step, jparams, jcfg, prompts, slots, gen_len):
                     if r >= 0:
                         outputs[r].append(int(tok[s]))
     return outputs
+
+
+def jax_params(model, dtype=None):
+    """A port model's parameters as the JAX package's ``init_model`` tree
+    (each layer leaf stacked), as JAX arrays in each parameter's dtype (or
+    ``dtype``); bfloat16 values convert exactly."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.models.convert import jax_tree
+
+    def arr(t):
+        dt = dtype or str(t.dtype).split(".")[1]
+        return jnp.asarray(t.detach().float().numpy(), dtype=jnp.dtype(dt))
+
+    return jax.tree_util.tree_map(arr, jax_tree(dict(model.named_parameters())))
