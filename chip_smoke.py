@@ -175,12 +175,34 @@ its seconds, and any failure raises (non-zero exit, no result line):
    state and stepped, bit for bit the uninterrupted sixth step (profiled);
    a step at accum=2; then ``whisper_medium`` at full width, 3 steps of 4
    x 448 tokens with 1,500 random frames; s a step, tokens/s, peak MiB;
-16. the kernel summary line (each kernel's launches as read in the counted
+16. ``lm_train_mesh``: ``mamba2_370m`` at full width and depth, 2 steps
+   of 8 x 4,096 tokens unsharded, then on the (1, 1) smoke mesh of a
+   one-rank NCCL process group (its store a file in a temporary
+   directory): parameters and moments DTensors placed by
+   ``cell_shardings``, the step under the sharding constraints, the scan
+   running each rank's rows through ``local_map``; the counts set to 0
+   before and read after (48 backward launches for 48 calls a step), the
+   loss and every parameter and moment bit for bit the unsharded steps
+   (else the largest difference, within 1e-4), s a step beside the
+   unsharded one's; the group destroyed at the end;
+17. ``dryrun_hybrid``: the port's dry run of ``mistral_nemo_12b`` /
+   ``train_4k`` / ``single`` (256 fake ranks on meta tensors, started as
+   a subprocess right after the build, in a temporary directory, so that
+   it traces on the host while the card runs the phases above): its
+   roofline terms against the H100's rates, its collectives by kind,
+   its wall s; then its ``hlo:`` job at 128 ranks co-run with ``milc`` on
+   the small 1D dragonfly through ``union.manager`` on the card (graph
+   replays), the horizon cut to the ML job's first compute segment plus
+   5 ms: both jobs deliver, the drain tick's and link demand's launches
+   equal their calls and the ticks;
+18. the kernel summary line (each kernel's launches as read in the counted
    windows, the simulator kernels' also on the trace's windows, the
    facade's run and the two paper fabrics, with their device ms on each
    fabric's live pool, the SSD scan's also on ``lm_families``, its
-   backward's on ``lm_train``'s 5 steps; its largest error against its
-   plain version), then the result line.
+   backward's on ``lm_train``'s 5 steps, both on ``lm_train_mesh``'s
+   (``mesh_launches``), the simulator kernels' on the co-run
+   (``hybrid_launches``); its largest error against its plain version),
+   then the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``); the card
 tests' input generators come from ``tests/test_torch_*_cuda.py``, which
@@ -191,8 +213,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2857,6 +2881,228 @@ def phase_lm_train(dev, steps=5):
     return dict(ssd_scan_bwd=launches["ssd_scan_bwd"], step_s=step_s)
 
 
+# ---------------------------------------------------------------------------
+# training on a mesh, and the dry run's hlo: job beside an HPC app
+# ---------------------------------------------------------------------------
+
+def phase_lm_train_mesh(dev, train_step_s, steps=2):
+    """``lm_train_mesh``: ``mamba2_370m`` at full width and depth, 2 steps
+    of 8 x 4,096 tokens, first unsharded (``lm_train``'s step function,
+    seed and data), then on the (1, 1) smoke mesh of an NCCL process group
+    of this one process (its store a file in a temporary directory):
+    parameters and moments DTensors placed by ``cell_shardings``, the
+    batch's rows by ``device_batch``, the step under ``mesh_axes``, the
+    counts set to 0 just before and read just after. The loss and every
+    parameter and moment held to the unsharded steps; s a step beside
+    the unsharded steps' and ``lm_train``'s (the last step's difference
+    is the host cost of DTensor dispatch). The group is destroyed at the
+    end."""
+    import gc
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.launch.mesh import batch_axes_of, make_smoke_mesh
+    from repro_torch.train.train_step import init_state
+
+    t0 = time.perf_counter()
+    args = TRAIN.parser().parse_args(
+        ["--arch", LM_ARCH, "--steps", "6", "--global-batch", "8",
+         "--seq-len", "4096", "--device", "cuda"])  # lm_train's schedule
+    cfg, opt_cfg, dc, step_fn = TRAIN.build(args)
+    params, opt = init_state(cfg, opt_cfg, seed=0, device=dev)
+    ref_losses, ref_walls = [], []
+    for s in range(steps):
+        params, opt, m, wall = timed_step(step_fn, params, opt,
+                                          *device_batch(dc, s, dev))
+        ref_losses.append(m["loss"])
+        ref_walls.append(wall)
+    ref = named_state(params, opt)
+
+    def value(x):
+        return float(x.full_tensor() if isinstance(x, DTensor) else x)
+
+    with TRAIN.one_process_group(dev):
+        mesh = make_smoke_mesh("cuda")
+        pm, om = init_state(cfg, opt_cfg, seed=0, device=dev)
+        pm, om = TRAIN.place_state(cfg, pm, opt_cfg, mesh)
+        need(all(isinstance(p, DTensor) for p in pm.parameters())
+             and all(isinstance(t, DTensor) for t in om.m.values()),
+             "lm_train_mesh: parameters or moments not placed")
+        batches = [device_batch(dc, s, dev, mesh, batch_axes_of(mesh))
+                   for s in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses, walls, per_step = [], [], []
+        for s in range(steps):
+            before = dict(ops.LAUNCHES), dict(ops.CALLS)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with TRAIN.mesh_context(mesh):
+                pm, om, mm = step_fn(pm, om, *batches[s])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            losses.append(value(mm["loss"]))
+            per_step.append({k: (ops.LAUNCHES[k] - before[0][k],
+                                 ops.CALLS[k] - before[1][k])
+                             for k in ("ssd_scan", "ssd_scan_bwd")})
+        launches = {k: ops.LAUNCHES[k] for k in ops.KERNELS}
+        calls = {k: ops.CALLS[k] for k in ops.KERNELS}
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        got = {k: (v.to_local() if isinstance(v, DTensor) else v).detach()
+               for k, v in named_state(pm, om).items()}
+    for k in ("ssd_scan", "ssd_scan_bwd"):
+        need(launches[k] == calls[k] > 0,
+             f"lm_train_mesh: {k} {launches[k]} launches for {calls[k]} "
+             "calls")
+    for s, c in enumerate(per_step):
+        need(c["ssd_scan_bwd"] == (cfg.n_layers, cfg.n_layers),
+             f"lm_train_mesh step {s + 1}: ssd_scan_bwd {c['ssd_scan_bwd']} "
+             f"(launches, calls), want {cfg.n_layers} each")
+    need(all(math.isfinite(x) for x in losses), f"lm_train_mesh: {losses}")
+    diffs = {k: float((got[k].float() - t.detach().float()).abs().max())
+             for k, t in ref.items()}
+    bit_exact = all(torch.equal(got[k], t) for k, t in ref.items()) \
+        and losses == ref_losses
+    worst = max(diffs, key=diffs.get)
+    # not bit for bit: the largest difference, then a float32 tolerance
+    need(bit_exact or (max(abs(a - b) for a, b in zip(losses, ref_losses))
+                       <= 1e-4 * abs(ref_losses[0])
+                       and diffs[worst] <= 1e-4),
+         f"lm_train_mesh: losses {losses} against {ref_losses}; largest "
+         f"difference {diffs[worst]} at {worst}")
+    emit(dict(phase="lm_train_mesh", arch=LM_ARCH, layers=cfg.n_layers,
+              mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+              backend="nccl", batch=dc.global_batch, seq=dc.seq_len,
+              steps=steps, step_s=walls, unsharded_step_s=ref_walls,
+              lm_train_step_s=train_step_s,
+              # the last step of each, past the first step's warm-up
+              dtensor_host_cost_s=walls[-1] - ref_walls[-1],
+              losses=losses, unsharded_losses=ref_losses,
+              bit_exact=bit_exact, max_abs_diff=diffs[worst],
+              max_abs_diff_at=worst, launches=launches, calls=calls,
+              ssd_scan_bwd_per_step=[c["ssd_scan_bwd"][0] for c in per_step],
+              peak_device_mib=peak_mib,
+              seconds=time.perf_counter() - t0))
+    del params, opt, pm, om, ref, got, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ssd_scan=launches["ssd_scan"],
+                ssd_scan_bwd=launches["ssd_scan_bwd"])
+
+
+DRYRUN_CELL = ("mistral_nemo_12b", "train_4k", "single")
+HYBRID_RANKS = 128
+
+
+def start_dryrun(tmp):
+    """The port's dry run of ``DRYRUN_CELL`` in a subprocess with ``tmp``
+    as its working directory: it joins a fake process group of 256 ranks,
+    which cannot share a process with ``lm_train_mesh``'s NCCL group, and
+    traces on the host (no card) while the card runs the other phases."""
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    log = open(os.path.join(tmp, "dryrun.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out",
+         os.path.join(tmp, "results", "dryrun")],
+        cwd=tmp, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return dict(proc=proc, log=log, tmp=tmp, t0=time.time())
+
+
+def phase_dryrun_hybrid(dev, dry):
+    """``dryrun_hybrid``: the dry run's record (waited for), its roofline
+    terms against the H100's rates, its collectives by kind and its wall
+    s; then, in its working directory, ``hlo:mistral_nemo_12b:train_4k``
+    at 128 ranks co-run with ``milc`` through the port's ``union``
+    scenario path on the card (the second half of
+    ``examples/hybrid_workload.py``; the small 1D dragonfly, RG, ADP, 5 µs
+    ticks), its horizon cut to the end of the ML job's first compute
+    segment plus 5 ms, the counts set to 0 just before and read just
+    after. Both jobs deliver messages; the drain tick's and link
+    demand's launches equal their calls and the ticks run."""
+    import re
+
+    from repro_torch.core.hlo2skeleton import from_dryrun_record
+    from repro_torch.kernels import ops
+    from repro_torch.union import manager as MGR
+    from repro_torch.union.scenario import Scenario, ScenarioJob
+
+    t0 = time.perf_counter()
+    rc = dry["proc"].wait(timeout=900)
+    dry["log"].close()
+    # its own wall: from its start to its last write (it ends long before
+    # this phase asks, beside the phases above)
+    wall = os.path.getmtime(dry["log"].name) - dry["t0"]
+    with open(dry["log"].name) as f:
+        log = f.read()
+    need(rc == 0, f"dryrun_hybrid: the dry run exited {rc}: {log[-2000:]}")
+    arch, shape, mesh = DRYRUN_CELL
+    path = os.path.join(dry["tmp"], "results", "dryrun",
+                        f"{arch}__{shape}__{mesh}.json")
+    with open(path) as f:
+        rec = json.load(f)
+    need(rec["n_devices"] == 256 and rec["flops_per_device"] > 0
+         and rec["analysis"] is not None,
+         f"dryrun_hybrid: record {sorted(rec)}")
+    src = from_dryrun_record(path)
+    seg_ms = float(re.search(r"compute for ([0-9.]+) milliseconds",
+                             src).group(1))
+    sc = Scenario(name="hybrid", jobs=[
+        ScenarioJob(app=f"hlo:{arch}:{shape}", ranks=HYBRID_RANKS),
+        ScenarioJob(app="milc", overrides={"iters": 2})],
+        topo="1d", scale="small", placement="RG", routing="ADP",
+        tick_us=5.0, horizon_ms=seg_ms + 5.0, pool_size=4096)
+    here = os.getcwd()
+    os.chdir(dry["tmp"])  # hlo: jobs read results/dryrun/ from here
+    try:
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        rep = MGR._run_member(sc, seed=1)
+        co_wall = time.perf_counter() - t1
+        counted = dict(launches=dict(ops.LAUNCHES), calls=dict(ops.CALLS))
+    finally:
+        os.chdir(here)
+    run = rep["engine_run"]
+    launches, calls = replayed_counts(run)
+    need(run["device"] == "cuda" and run["replays"] > 0,
+         "dryrun_hybrid: the co-run replayed no graph")
+    for k in ("drain_tick", "link_demand"):
+        need(launches[k] == calls[k] == run["ticks"] > 0,
+             f"dryrun_hybrid: {launches[k]} {k} launches for {calls[k]} "
+             f"calls and {run['ticks']} ticks")
+    delivered = {name: rep["latency"][name]["count"]
+                 for name in (f"hlo:{arch}:{shape}", "milc")}
+    need(all(n > 0 for n in delivered.values()),
+         f"dryrun_hybrid: delivered {delivered}")
+    emit(dict(phase="dryrun_hybrid", cell=list(DRYRUN_CELL),
+              dryrun_wall_s=wall, lower_s=rec["lower_s"],
+              compile_s=rec["compile_s"], roofline=rec["roofline"],
+              flops_per_device=rec["flops_per_device"],
+              bytes_per_device=rec["bytes_per_device"],
+              wire_bytes_per_device=rec["wire_bytes_per_device"],
+              collectives_by_kind=rec["collectives"]["by_kind_count"],
+              collective_bytes_by_kind=rec["collectives"]["by_kind_bytes"],
+              memory=rec["memory"], model_flops_total=rec["model_flops_total"],
+              useful_flops_ratio=rec["useful_flops_ratio"],
+              hybrid=dict(ranks=HYBRID_RANKS, horizon_ms=sc.horizon_ms,
+                          compute_segment_ms=seg_ms, wall_s=co_wall,
+                          ticks=run["ticks"], replays=run["replays"],
+                          delivered=delivered,
+                          avg_latency_us={k: rep["latency"][k]["avg_us"]
+                                          for k in delivered},
+                          launches=launches, calls=calls,
+                          counted_while_capturing=counted),
+              seconds=time.perf_counter() - t0))
+    return launches
+
+
 def free_engines() -> None:
     """Drop the cached engines and their captured graphs."""
     import gc
@@ -2890,13 +3136,29 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path[:0] = [SRC, os.path.join(ROOT, "tests")]
-    from repro_torch.kernels import _build
 
     # float32 products in full float32 (the kernels' plain versions)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    dry = start_dryrun(tmp)
+    try:
+        return run_phases(dev, dry, t0)
+    finally:
+        if dry["proc"].poll() is None:
+            dry["proc"].kill()
+            dry["proc"].wait()
+        dry["log"].close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(dev, dry, t0) -> int:
+    import torch
+
+    from repro_torch.kernels import _build
+
     _build.load_all(KERNEL_SOURCES)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2948,6 +3210,10 @@ def main() -> int:
     phase_lm_encdec(dev)
     free_engines()
     train = phase_lm_train(dev)
+    mesh_train = phase_lm_train_mesh(dev, train["step_s"])
+    free_engines()
+    hybrid = phase_dryrun_hybrid(dev, dry)
+    free_engines()
 
     main_row, dem = rows[0], dem_rows[0]
     emit({"kernels": [
@@ -2966,7 +3232,9 @@ def main() -> int:
              # paper_fabrics' counted runs (route widths 6 and 21)
              fabric_launches={f: v["drain_tick"]
                               for f, v in fabric_launches.items()},
-             fabric_live=fabric_live(fabric_launches, "drain_tick")),
+             fabric_live=fabric_live(fabric_launches, "drain_tick"),
+             # dryrun_hybrid's co-run of the hlo: job with milc
+             hybrid_launches=hybrid["drain_tick"]),
         dict(name="link_demand", route="cuda",
              source="src/repro_torch/kernels/csrc/link_demand.cu",
              replaces="src/repro/netsim/engine.py:805",
@@ -2977,6 +3245,7 @@ def main() -> int:
              fabric_launches={f: v["link_demand"]
                               for f, v in fabric_launches.items()},
              fabric_live=fabric_live(fabric_launches, "link_demand"),
+             hybrid_launches=hybrid["link_demand"],
              max_abs_err=max([r["max_abs_err"] for r in dem_rows]
                              + [launches1["link_demand_max_abs_err"]]
                              + [v["link_demand_max_abs_err"]
@@ -2994,7 +3263,9 @@ def main() -> int:
              bound_ms=ssd["bound_ms"], bound_by=ssd["bound_by"],
              library_ms=None,
              # jamba_v01_52b's counted prefill on lm_families (ds 16)
-             families_launches=families_scan["launches"]),
+             families_launches=families_scan["launches"],
+             # lm_train_mesh's 2 steps on the (1, 1) mesh, via local_map
+             mesh_launches=mesh_train["ssd_scan"]),
         dict(name="ssd_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
              # no TPU counterpart: the reference differentiates its jnp
@@ -3005,7 +3276,8 @@ def main() -> int:
              launches=train["ssd_scan_bwd"],
              max_abs_err=ssd_bwd["max_abs_err"], ms=ssd_bwd["ms"],
              plain_ms=ssd_bwd["plain_ms"], bound_ms=ssd_bwd["bound_ms"],
-             bound_by=ssd_bwd["bound_by"], library_ms=None),
+             bound_by=ssd_bwd["bound_by"], library_ms=None,
+             mesh_launches=mesh_train["ssd_scan_bwd"]),
         dict(name="router_rate_drain", route="cuda",
              source="src/repro_torch/kernels/csrc/router_tick.cu",
              replaces="src/repro/kernels/router_tick.py:48",

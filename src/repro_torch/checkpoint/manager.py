@@ -19,9 +19,11 @@ A tree is any nesting of dicts, tuples and lists over tensors, numpy
 arrays and numbers, where a model (:class:`torch.nn.Module`) stands for
 the reference's parameter tree and an :class:`~repro_torch.optim.adamw.
 OptState` for its optimizer state. :meth:`CheckpointManager.restore`
-fills a template of that shape: a model's parameters are overwritten in
+fills a template of that shape: a model's parameters are replaced in
 place, every other leaf is a new tensor with the template's dtype and
-device.
+device. A DTensor is saved as its global array (every rank gathers it;
+pass the same ``step`` on every rank, and let one write) and restored
+under the current mesh, the reference's elastic restore.
 """
 from __future__ import annotations
 
@@ -32,17 +34,23 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.convert import jax_path, jax_tree
 from repro_torch.optim.adamw import OptState
+from repro_torch.train.sharding import distribute
 
 SEP = "|"
 
 
 def _host(x) -> np.ndarray:
-    """A leaf as a numpy array on the host, bfloat16 as float32."""
+    """A leaf as a numpy array on the host, bfloat16 as float32 (a DTensor
+    as its global array)."""
     if torch.is_tensor(x):
         x = x.detach()
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.cpu().numpy()
@@ -81,14 +89,25 @@ def _get(flat, key: str):
     return flat[key]
 
 
-def _leaf(flat, key: str, template):
+def _like(arr, template, place=None, mesh=None):
+    """A stored array as a tensor of ``template``'s dtype and device; a
+    DTensor of ``place`` on ``mesh`` when given, else of the template's
+    own placements when it is a DTensor (each rank keeps its shard of the
+    global array)."""
+    arr = np.asarray(arr)
+    t = torch.as_tensor(arr.astype(np.float32) if template.is_floating_point()
+                        else arr).to(dtype=template.dtype,
+                                     device=template.device)
+    if place is None and isinstance(template, DTensor):
+        place, mesh = template.placements, template.device_mesh
+    return t if place is None else distribute(t, mesh, place)
+
+
+def _leaf(flat, key: str, template, place=None, mesh=None):
     """The stored array at ``key`` as a tensor like ``template``."""
     arr = _get(flat, key)
     if torch.is_tensor(template):
-        return torch.as_tensor(np.asarray(arr, np.float32)
-                               if template.is_floating_point()
-                               else np.asarray(arr)).to(
-            dtype=template.dtype, device=template.device)
+        return _like(arr, template, place, mesh)
     return np.asarray(arr).astype(np.asarray(template).dtype)
 
 
@@ -99,32 +118,44 @@ def _named_leaf(flat, prefix, name: str):
     return arr if idx is None else arr[idx]
 
 
-def _unflatten_like(template, flat, prefix=()):
+def _unflatten_like(template, flat, prefix=(), place=None, mesh=None):
+    """``template``'s structure filled from ``flat``; ``place``: None or a
+    tree of placements of the same structure (a model's and the
+    moments' keyed by parameter name)."""
     if isinstance(template, torch.nn.Module):
-        with torch.no_grad():
-            for name, p in template.named_parameters():
-                arr = np.asarray(_named_leaf(flat, prefix, name), np.float32)
-                if tuple(arr.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}: stored {arr.shape}, "
-                                     f"model {tuple(p.shape)}")
-                p.copy_(torch.as_tensor(arr).to(p.dtype))
+        for name, p in list(template.named_parameters()):
+            arr = _named_leaf(flat, prefix, name)
+            if tuple(np.shape(arr)) != tuple(p.shape):
+                raise ValueError(f"{name}: stored {np.shape(arr)}, "
+                                 f"model {tuple(p.shape)}")
+            t = _like(arr, p, None if place is None else place[name], mesh)
+            owner, _, leaf = name.rpartition(".")
+            module = template.get_submodule(owner) if owner else template
+            module._parameters[leaf] = torch.nn.Parameter(
+                t, requires_grad=p.requires_grad)
         return template
     if isinstance(template, OptState):
         def moments(which, named):
-            return {n: torch.as_tensor(np.asarray(
-                _named_leaf(flat, prefix + (which,), n), np.float32)).to(
-                    dtype=t.dtype, device=t.device) for n, t in named.items()}
+            sub = None if place is None else getattr(place, which)
+            return {n: _like(_named_leaf(flat, prefix + (which,), n), t,
+                             None if sub is None else sub[n], mesh)
+                    for n, t in named.items()}
 
         return OptState(step=_leaf(flat, SEP.join(prefix + ("step",)),
-                                   template.step),
+                                   template.step,
+                                   None if place is None else place.step,
+                                   mesh),
                         m=moments("m", template.m), v=moments("v", template.v))
     if isinstance(template, dict):
-        return {k: _unflatten_like(v, flat, prefix + (str(k),))
+        return {k: _unflatten_like(v, flat, prefix + (str(k),),
+                                   None if place is None else place[k], mesh)
                 for k, v in template.items()}
     if isinstance(template, (tuple, list)):
-        return type(template)(_unflatten_like(v, flat, prefix + (str(i),))
-                              for i, v in enumerate(template))
-    return _leaf(flat, SEP.join(prefix), template)
+        return type(template)(
+            _unflatten_like(v, flat, prefix + (str(i),),
+                            None if place is None else place[i], mesh)
+            for i, v in enumerate(template))
+    return _leaf(flat, SEP.join(prefix), template, place, mesh)
 
 
 class CheckpointManager:
@@ -145,9 +176,13 @@ class CheckpointManager:
     def save(self, step: int, tree, meta: Optional[Dict] = None,
              block: bool = True):
         """Snapshot ``tree`` at ``step`` (copied to the host before this
-        returns, also when the write is left to a thread)."""
+        returns, also when the write is left to a thread). In a process
+        group every rank calls it (a DTensor's global array is gathered
+        by all) and rank 0 writes."""
         self.wait()
         host = _flatten(tree)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # every rank gathered its DTensors; rank 0 writes
         meta = dict(meta or {}, step=step)
         if block:
             self._write(step, host, meta)
@@ -177,12 +212,23 @@ class CheckpointManager:
             return None
         return int(ckpts[-1][len("ckpt_"): -len(".npz")])
 
-    def restore(self, step: int, template) -> Tuple[Any, Dict]:
+    def restore(self, step: int, template, placements=None,
+                mesh=None) -> Tuple[Any, Dict]:
         """The checkpoint of ``step`` in the shape of ``template`` (see the
-        module note), and its metadata."""
+        module note), and its metadata.
+
+        placements: optional tree of DTensor placements like the
+        template's (``launch.specs.cell_shardings``' ``params`` for a
+        model, an ``OptState`` of them for its optimizer state) on
+        ``mesh``: the elastic restore, each rank taking its shards of the
+        stored global arrays under the *current* mesh, whatever mesh
+        wrote them. Without it, a template's DTensor is restored with its
+        own placements.
+        """
         self.wait()
         path = os.path.join(self.dir, f"ckpt_{step:010d}.npz")
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
             flat = {k: z[k] for k in z.files if k != "__meta__"}
-        return _unflatten_like(template, flat), meta
+        return _unflatten_like(template, flat, place=placements,
+                               mesh=mesh), meta

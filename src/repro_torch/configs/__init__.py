@@ -4,7 +4,9 @@ A copy of the JAX package's ``configs/__init__.py``: every architecture
 of its registry is ported. ``get_config(name)`` returns the full
 published config; ``get_smoke_config(name)`` a reduced same-family config
 for CPU tests (few layers, narrow width, tiny vocab, the same period
-structure).
+structure). ``SHAPES`` are the dry run's input shapes (sequence length,
+global batch, step kind) and ``cell_applicable`` says which an
+architecture runs.
 """
 from __future__ import annotations
 
@@ -46,6 +48,25 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+# --------------------------------------------------------------------------
+# input shapes assigned to the LM-family pool (seq_len, global_batch, kind)
+# --------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape_name: str) -> bool:
+    """long_500k only runs for sub-quadratic archs."""
+    if shape_name == "long_500k":
+        return cfg.subquadratic
+    return True
 
 
 def smoke_shrink(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -6,7 +6,7 @@ reference): batches are a pure function of ``(seed, step, row)``
 (counter-based Philox), so any worker can regenerate any rows of any
 step, and a resumed run needs only the step. The stream has learnable
 structure (a noisy affine n-gram process). :func:`device_batch` puts a
-step's batch on one device; there is no mesh.
+step's batch on one device, or each rank's rows of it on a mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 @dataclass(frozen=True)
@@ -56,9 +57,32 @@ def host_batch(cfg: DataConfig, step: int, lo: int = 0,
     return tokens, targets
 
 
-def device_batch(cfg: DataConfig, step: int,
-                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``step``'s global batch as int32 tensors on ``device``."""
-    tokens, targets = host_batch(cfg, step)
-    return (torch.as_tensor(tokens, device=device),
-            torch.as_tensor(targets, device=device))
+def device_batch(cfg: DataConfig, step: int, device=None, mesh=None,
+                 batch_axes=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``step``'s global batch as int32 tensors on ``device``. With a
+    ``mesh``, DTensors whose rows are split over ``batch_axes`` (in mesh
+    order, the first outermost) and replicated over the other axes: each
+    rank makes only its own rows with :func:`host_batch` and none is
+    sent."""
+    if mesh is None:
+        tokens, targets = host_batch(cfg, step)
+        return (torch.as_tensor(tokens, device=device),
+                torch.as_tensor(targets, device=device))
+    names = list(mesh.mesh_dim_names)
+    n, block = 1, 0  # rows split n ways; this rank's block of them
+    for a in batch_axes:
+        i = names.index(a)
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+        n *= mesh.size(i)
+    if cfg.global_batch % n:
+        raise ValueError(f"a global batch of {cfg.global_batch} rows does "
+                         f"not split over {n} ranks of {batch_axes}")
+    rows = cfg.global_batch // n
+    placements = [Shard(0) if a in batch_axes else Replicate()
+                  for a in names]
+    tokens, targets = host_batch(cfg, step, block * rows, (block + 1) * rows)
+    shape = (cfg.global_batch, tokens.shape[1])
+    return tuple(DTensor.from_local(
+        torch.as_tensor(t, device=device), mesh, placements,
+        run_check=False, shape=shape, stride=(shape[1], 1))
+        for t in (tokens, targets))

@@ -6,8 +6,9 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    another. Raises when CUDA is asked for (or defaulted to) and absent —
-    the port never drops to the CPU on its own."""
+    another (``cpu``, or ``meta`` for shapes without data, as the dry run
+    traces a step). Raises when CUDA is asked for (or defaulted to) and
+    absent — the port never drops to the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

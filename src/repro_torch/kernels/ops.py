@@ -1,8 +1,12 @@
 """Public kernel entry points of the port: device dispatch + launch counts.
 
 A wrapper picks its path from where its tensors lie: CPU tensors take the
-plain PyTorch version, CUDA tensors launch the hand-written kernel or
-raise. There is no fallback from the kernel to the plain version.
+plain PyTorch version (so do ``meta`` tensors, whose call only traces
+shapes), CUDA tensors launch the hand-written kernel or raise, tensors on
+any other device raise. There is no fallback from the kernel to the plain
+version. A wrapper takes local tensors: the sharded model hands the SSD
+scan each rank's own rows through ``local_map``
+(:func:`repro_torch.models.mamba2.ssd_chunked`).
 
 ``CALLS`` counts, per wrapper, every call; ``LAUNCHES`` counts the calls
 that launched the wrapper's kernels, once a call however many CUDA
@@ -18,6 +22,8 @@ sets every count to 0.
 from __future__ import annotations
 
 from typing import Dict
+
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
 from repro_torch.kernels.link_demand import (
@@ -40,11 +46,17 @@ def reset_launches() -> None:
 
 
 def _dispatch(name, device, plain, cuda, *args):
-    """Count the call; the plain version for CPU tensors, else the kernel
-    (counted as a launch)."""
+    """Count the call; the plain version for CPU tensors and for ``meta``
+    ones (where it traces shapes alone, as the dry run does), the kernel
+    for CUDA tensors (counted as a launch); any other device raises."""
+    if any(isinstance(a, DTensor) for a in args):
+        raise TypeError(f"{name}: takes each rank's local tensors, not "
+                        "DTensors (map the call with local_map)")
     CALLS[name] += 1
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return plain(*args)
+    if device.type != "cuda":
+        raise TypeError(f"{name}: no kernel for tensors on {device}")
     out = cuda(*args)
     LAUNCHES[name] += 1
     return out

@@ -8,8 +8,9 @@ cache), the dense MLPs, the embedding, the tied or untied unembedding and
 the two cross-entropies (chunked, and the flash one with its recomputing
 backward). ``cfg.compute_dtype`` is used inside the projections;
 normalisation, softmax and RoPE run in float32, and so do the attention
-score and PV products unless ``cfg.attn_bf16``. The sharding constraints
-of the reference are no-ops on one device and are not ported.
+score and PV products unless ``cfg.attn_bf16``. Attention's queries and
+outputs pass the reference's sharding constraints
+(:mod:`repro_torch.train.sharding`; identities outside its ``mesh_axes``).
 
 Parameters are built frozen (``requires_grad=False``), so that serving
 records no autograd graph; the train step turns gradients on for the
@@ -21,9 +22,13 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.train import sharding as SH
 
 # keys per block of the online-softmax attention
 KV_CHUNK = 1024
@@ -102,8 +107,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     of each head (not interleaved pairs), in float32."""
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)
     ang = positions[..., None].float() * freqs  # (..., S, d/2)
-    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, d/2)
-    sin = torch.sin(ang)[..., None, :]
+    cos = SH.like(torch.cos(ang)[..., None, :], x)  # (..., S, 1, d/2)
+    sin = SH.like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -139,17 +144,30 @@ def _project_qkv(p, xq, xkv, cfg: ModelConfig):
     cdt = _dtype(cfg.compute_dtype)
     B, Sq = xq.shape[0], xq.shape[1]
     Skv = xkv.shape[1]
-    q = xq.to(cdt) @ p.wq.to(cdt)
-    k = xkv.to(cdt) @ p.wk.to(cdt)
-    v = xkv.to(cdt) @ p.wv.to(cdt)
+    q = xq.to(cdt) @ SH.gather_fsdp(p.wq).to(cdt)
+    k = xkv.to(cdt) @ SH.gather_fsdp(p.wk).to(cdt)
+    v = xkv.to(cdt) @ SH.gather_fsdp(p.wv).to(cdt)
     if cfg.qkv_bias:
         q = q + p.bq.to(cdt)
         k = k + p.bk.to(cdt)
         v = v + p.bv.to(cdt)
-    q = q.reshape(B, Sq, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
+    q = _split_heads(q, cfg.n_heads, cfg.d_head)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
     return q, k, v
+
+
+def _split_heads(t, n_heads: int, d_head: int):
+    """(B, S, n_heads·d_head) -> (B, S, n_heads, d_head). A DTensor whose
+    last dim a mesh dim splits into parts that are not whole heads is
+    gathered on that mesh dim first."""
+    if isinstance(t, DTensor):
+        keep = tuple(Replicate() if p == Shard(2)
+                     and n_heads % t.device_mesh.size(i) else p
+                     for i, p in enumerate(t.placements))
+        if keep != tuple(t.placements):
+            t = t.redistribute(t.device_mesh, keep)
+    return t.reshape(t.shape[0], t.shape[1], n_heads, d_head)
 
 
 def _chunk_mask(valb, k_pos, q_pos, causal: bool, window: int):
@@ -189,20 +207,20 @@ def _ungrouped(t, S):
 
 
 def _chunk_scores(qg, kb, kvv, sl, c, chunk, Sq, rep, causal, window,
-                  scale):
+                  scale, q_offset=0):
     """Chunk ``c``'s (keys ``sl``) scaled scores (B, Hkv, rep, Sq, chunk)
     float32 from the grouped queries and the chunk's keys kb (B, Hkv, dh,
     chunk), ``NEG_INF`` where the key is masked."""
     B, Hkv = qg.shape[0], qg.shape[1]
     s = (qg @ kb).mul_(scale).view(B, Hkv, rep, Sq, chunk)
-    q_pos = torch.arange(Sq, device=qg.device)
+    q_pos = q_offset + torch.arange(Sq, device=qg.device)
     k_pos = c * chunk + torch.arange(chunk, device=qg.device)
     mask = _chunk_mask(kvv[:, sl], k_pos, q_pos, causal, window)
     return s.masked_fill_(~mask[:, None, None], NEG_INF)
 
 
 def _flash_fwd(q, kp, vp, kvv, causal: bool, window: int, chunk: int,
-               mm_bf16: bool):
+               mm_bf16: bool, q_offset: int = 0):
     """The reference's ``_flash_fwd_scan`` as a loop over key chunks.
 
     q: (B, Sq, H, dh); kp, vp: (B, Skv, Hkv, dh) with Skv a multiple of
@@ -228,7 +246,7 @@ def _flash_fwd(q, kp, vp, kvv, causal: bool, window: int, chunk: int,
         kb = _mm_operand(kp[:, sl], mm_bf16).permute(0, 2, 3, 1)  # B,g,d,k
         vb = _mm_operand(vp[:, sl], mm_bf16).permute(0, 2, 1, 3)  # B,g,k,d
         s = _chunk_scores(qg, kb, kvv, sl, c, chunk, Sq, rep, causal, window,
-                          scale)
+                          scale, q_offset)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = s.sub_(m_new[..., None]).exp_()
         corr = torch.exp(m - m_new)
@@ -242,7 +260,7 @@ def _flash_fwd(q, kp, vp, kvv, causal: bool, window: int, chunk: int,
 
 
 def _flash_bwd(do, q, kp, vp, kvv, o, lse, causal: bool, window: int,
-               chunk: int, mm_bf16: bool):
+               chunk: int, mm_bf16: bool, q_offset: int = 0):
     """The reference's ``_flash_attn_bwd``: each chunk's probabilities are
     recomputed from the saved ``lse`` (O(S·chunk) live memory, not
     autograd's O(S²)), and the GQA query heads fold back onto their KV
@@ -265,7 +283,7 @@ def _flash_bwd(do, q, kp, vp, kvv, o, lse, causal: bool, window: int,
         kb = _mm_operand(kp[:, sl], mm_bf16).permute(0, 2, 3, 1)  # B,g,d,k
         vb = _mm_operand(vp[:, sl], mm_bf16).permute(0, 2, 3, 1)  # B,g,d,k
         s = _chunk_scores(qg, kb, kvv, sl, c, chunk, Sq, rep, causal, window,
-                          scale)
+                          scale, q_offset)
         p = s.sub_(lse[..., None]).exp_()  # exact probabilities
         dp = (dog @ vb).view(B, Hkv, rep, Sq, chunk)
         dsm = _mm_operand(p * (dp - delta), mm_bf16).view(
@@ -282,9 +300,11 @@ class _FlashAttention(torch.autograd.Function):
     forward, and a backward that recomputes each chunk's scores."""
 
     @staticmethod
-    def forward(ctx, q, kp, vp, kvv, causal, window, chunk, mm_bf16):
-        o, lse = _flash_fwd(q, kp, vp, kvv, causal, window, chunk, mm_bf16)
-        ctx.static = (causal, window, chunk, mm_bf16)
+    def forward(ctx, q, kp, vp, kvv, causal, window, chunk, mm_bf16,
+                q_offset=0):
+        o, lse = _flash_fwd(q, kp, vp, kvv, causal, window, chunk, mm_bf16,
+                            q_offset)
+        ctx.static = (causal, window, chunk, mm_bf16, q_offset)
         ctx.save_for_backward(q, kp, vp, kvv, o, lse)
         return o.to(q.dtype)
 
@@ -293,20 +313,27 @@ class _FlashAttention(torch.autograd.Function):
         q, kp, vp, kvv, o, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(do, q, kp, vp, kvv, o, lse, *ctx.static)
         return (dq.to(q.dtype), dk.to(kp.dtype), dv.to(vp.dtype), None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: int = 0,
                       kv_valid: Optional[torch.Tensor] = None,
                       chunk: int = KV_CHUNK,
-                      matmul_bf16: bool = False) -> torch.Tensor:
+                      matmul_bf16: bool = False,
+                      q_offset: int = 0) -> torch.Tensor:
     """Flash attention: online softmax over KV chunks, with the
     reference's recomputing backward. q: (B, Sq, H, dh); k, v: (B, Skv,
     Hkv, dh); kv_valid: optional (B, Skv) bool. Keys are padded to a
     multiple of the chunk and masked; masked scores are ``NEG_INF``, not
     -inf, so a row with no valid key averages the values (as the
-    reference does). Returns (B, Sq, H, dh) in q's dtype."""
+    reference does). ``q_offset``: the position of the first query (the
+    keys start at 0). Returns (B, Sq, H, dh) in q's dtype. DTensors go
+    through :func:`_attention_mesh`."""
+    if isinstance(q, DTensor):
+        return _attention_mesh(q, k, v, causal=causal, window=window,
+                               kv_valid=kv_valid, chunk=chunk,
+                               matmul_bf16=matmul_bf16)
     B, Sq, H, dh = q.shape
     Skv = k.shape[1]
     chunk = min(chunk, Skv)
@@ -320,7 +347,69 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_valid is not None:
         kvv = F.pad(kv_valid, (0, pad)) & kvv
     return _FlashAttention.apply(q, k, v, kvv, bool(causal), int(window),
-                                 int(chunk), bool(matmul_bf16))
+                                 int(chunk), bool(matmul_bf16),
+                                 int(q_offset))
+
+
+def _attention_mesh(q, k, v, *, causal: bool, window: int, kv_valid,
+                    chunk: int, matmul_bf16: bool):
+    """Attention of DTensors through ``local_map``: each rank attends with
+    its own rows. A mesh dim that shards q's batch shards k and v's too;
+    one that shards q's heads gives each rank its query heads and the KV
+    heads they read (k and v split alike where the KV heads divide the
+    dim, else whole and sliced here); one that shards q's sequence
+    (context-parallel) gives each rank its queries at their positions
+    against whole k and v. Every other mesh dim is replicated first."""
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    rep = H // Hkv
+    roles = []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        Hl = H // n  # query heads a rank holds when the dim splits them
+        if p == Shard(0):
+            roles.append("batch")
+        elif p == Shard(2) and Hkv % n == 0 and Hl % rep == 0:
+            roles.append("heads")
+        elif p == Shard(2) and (Hl % rep == 0 or rep % Hl == 0):
+            roles.append("heads_kv_whole")
+        elif p == Shard(1):
+            roles.append("seq")
+        else:
+            roles.append(None)
+
+    def lay(for_role):
+        return tuple(for_role.get(r, Replicate()) for r in roles)
+
+    q_pl = lay({"batch": Shard(0), "heads": Shard(2),
+                "heads_kv_whole": Shard(2), "seq": Shard(1)})
+    kv_pl = lay({"batch": Shard(0), "heads": Shard(2)})
+    # where k and v are whole, a rank's gradient sums its queries' part
+    dkv_pl = lay({"batch": Shard(0), "heads": Shard(2),
+                  "heads_kv_whole": Partial(), "seq": Partial()})
+    valid_pl = lay({"batch": Shard(0)})
+
+    def local(ql, kl, vl, valid):
+        q_offset = 0
+        for i, r in enumerate(roles):
+            if r == "seq":
+                q_offset += mesh.get_local_rank(i) * ql.shape[1]
+            elif r == "heads_kv_whole":  # this rank's query heads' KV heads
+                h0 = mesh.get_local_rank(i) * ql.shape[2]
+                lo, hi = h0 // rep, (h0 + ql.shape[2] - 1) // rep + 1
+                kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return chunked_attention(ql, kl, vl, causal=causal, window=window,
+                                 kv_valid=valid, chunk=chunk,
+                                 matmul_bf16=matmul_bf16, q_offset=q_offset)
+
+    fn = local_map(local, out_placements=(q_pl,),
+                   in_placements=(q_pl, kv_pl, kv_pl,
+                                  None if kv_valid is None else valid_pl),
+                   in_grad_placements=(q_pl, dkv_pl, dkv_pl,
+                                       None if kv_valid is None
+                                       else valid_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v, kv_valid)
 
 
 def attention_train(p, x, cfg: ModelConfig, positions=None):
@@ -332,11 +421,13 @@ def attention_train(p, x, cfg: ModelConfig, positions=None):
     q, k, v = _project_qkv(p, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = SH.constrain_attn_q(q)
     o = chunked_attention(q, k, v, causal=True, window=cfg.sliding_window,
                           matmul_bf16=cfg.attn_bf16)
+    o = SH.constrain_attn_out(o)
     cdt = _dtype(cfg.compute_dtype)
-    o = o.reshape(B, S, cfg.d_qkv).to(cdt) @ p.wo.to(cdt)
-    return o, (k, v)
+    o = o.reshape(B, S, cfg.d_qkv).to(cdt) @ SH.gather_fsdp(p.wo).to(cdt)
+    return SH.reduce_partial(o), (k, v)
 
 
 def attention_bidir(p, x, cfg: ModelConfig):
@@ -347,9 +438,12 @@ def attention_bidir(p, x, cfg: ModelConfig):
     q, k, v = _project_qkv(p, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = SH.constrain_attn_q(q)
     o = chunked_attention(q, k, v, causal=False, matmul_bf16=cfg.attn_bf16)
+    o = SH.constrain_attn_out(o)
     cdt = _dtype(cfg.compute_dtype)
-    return o.reshape(B, S, cfg.d_qkv).to(cdt) @ p.wo.to(cdt)
+    return SH.reduce_partial(
+        o.reshape(B, S, cfg.d_qkv).to(cdt) @ SH.gather_fsdp(p.wo).to(cdt))
 
 
 def attention_cross(p, x, enc_out, cfg: ModelConfig):
@@ -357,9 +451,12 @@ def attention_cross(p, x, enc_out, cfg: ModelConfig):
     RoPE; K and V with their biases)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, enc_out, cfg)
+    q = SH.constrain_attn_q(q)
     o = chunked_attention(q, k, v, causal=False, matmul_bf16=cfg.attn_bf16)
+    o = SH.constrain_attn_out(o)
     cdt = _dtype(cfg.compute_dtype)
-    return o.reshape(B, S, cfg.d_qkv).to(cdt) @ p.wo.to(cdt)
+    return SH.reduce_partial(
+        o.reshape(B, S, cfg.d_qkv).to(cdt) @ SH.gather_fsdp(p.wo).to(cdt))
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, ctx: int,
@@ -407,8 +504,8 @@ def attention_decode(p, x, cache, cfg: ModelConfig):
     w = torch.softmax(s, dim=-1)
     o = w @ cv.float().permute(0, 2, 1, 3)  # (B, Hkv, rep, dh)
     cdt = _dtype(cfg.compute_dtype)
-    o = o.reshape(B, 1, cfg.d_qkv).to(cdt) @ p.wo.to(cdt)
-    return o, {"k": ck, "v": cv, "pos": pos + 1}
+    o = o.reshape(B, 1, cfg.d_qkv).to(cdt) @ SH.gather_fsdp(p.wo).to(cdt)
+    return SH.reduce_partial(o), {"k": ck, "v": cv, "pos": pos + 1}
 
 
 # --------------------------------------------------------------------------
@@ -449,9 +546,9 @@ def activate(up, gate, cfg: ModelConfig):
 def apply_mlp(p, x, cfg: ModelConfig):
     cdt = _dtype(cfg.compute_dtype)
     x = x.to(cdt)
-    gate = x @ p.w_gate.to(cdt) if cfg.mlp_act == "swiglu" else None
-    h = activate(x @ p.w_up.to(cdt), gate, cfg)
-    return h @ p.w_down.to(cdt)
+    gate = x @ SH.gather_fsdp(p.w_gate).to(cdt) if cfg.mlp_act == "swiglu" else None
+    h = activate(x @ SH.gather_fsdp(p.w_up).to(cdt), gate, cfg)
+    return SH.reduce_partial(h @ SH.gather_fsdp(p.w_down).to(cdt))
 
 
 # --------------------------------------------------------------------------
@@ -462,14 +559,90 @@ def embed_tokens(emb, tokens, cfg: ModelConfig):
     """The rows of ``emb`` at ``tokens``, in the compute dtype. A gather
     through ``F.embedding``, whose backward on the card sums each row's
     gradient in a fixed order (indexing's ``index_put_`` accumulates with
-    atomics), so that a train step repeats bit for bit."""
+    atomics), so that a train step repeats bit for bit. A DTensor table
+    takes the vocab-parallel lookup (:func:`_embed_mesh`)."""
+    if isinstance(emb, DTensor):
+        return _embed_mesh(emb, tokens).to(_dtype(cfg.compute_dtype))
     return F.embedding(tokens.long(), emb).to(_dtype(cfg.compute_dtype))
+
+
+class _VocabParallelEmbedding(torch.autograd.Function):
+    """Rows of a table that holds the vocabulary ids from ``offset`` on
+    (the other ids on the other ranks of ``group``): each rank looks up
+    the tokens it holds, zero elsewhere, and the group sums the rows."""
+
+    @staticmethod
+    def forward(ctx, tokens, emb, offset, group):
+        idx = tokens.long() - offset
+        mine = (idx >= 0) & (idx < emb.shape[0])
+        idx = torch.where(mine, idx, 0)
+        ctx.save_for_backward(idx, mine)
+        ctx.n_rows = emb.shape[0]
+        out = F.embedding(idx, emb) * mine[..., None]
+        return funcol.all_reduce(out, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, mine = ctx.saved_tensors
+        g = g * mine[..., None]
+        return None, torch.ops.aten.embedding_dense_backward(
+            g, idx, ctx.n_rows, -1, False), None, None
+
+
+def _vocab_parallel(rows_of, table, vocab_dim_of_table: int):
+    """How a row-local op over a vocabulary table maps onto the mesh:
+    the mesh dims that shard ``rows_of``'s batch (its dim 0) are "batch",
+    the first other dim (of size > 1) that shards the table's vocabulary
+    dim is "vocab". Returns (lay, the vocab mesh dim or None), where
+    ``lay(on_batch, on_vocab)`` gives one placement a mesh dim,
+    Replicate() on the others."""
+    mesh = table.device_mesh
+    roles, vocab_dim = [], None
+    for i, (pr, pt) in enumerate(zip(rows_of.placements, table.placements)):
+        if pr == Shard(0):
+            roles.append("batch")
+        elif (pt == Shard(vocab_dim_of_table) and vocab_dim is None
+              and mesh.size(i) > 1):
+            roles.append("vocab")
+            vocab_dim = i
+        else:
+            roles.append(None)
+
+    def lay(on_batch, on_vocab):
+        return tuple(on_batch if r == "batch" else on_vocab if r == "vocab"
+                     else Replicate() for r in roles)
+
+    return lay, vocab_dim
+
+
+def _embed_mesh(emb, tokens):
+    """The lookup of DTensors through ``local_map``: the mesh dims that
+    shard the tokens' batch give each rank its rows; the first other one
+    that shards the table's vocabulary splits the lookup as
+    :class:`_VocabParallelEmbedding` does; the table's other dims are
+    gathered first."""
+    mesh = emb.device_mesh
+    lay, vocab_dim = _vocab_parallel(tokens, emb, 0)
+    rows = lay(Shard(0), Replicate())
+
+    def local(tl, el):
+        if vocab_dim is None:
+            return F.embedding(tl.long(), el)
+        return _VocabParallelEmbedding.apply(
+            tl, el, mesh.get_local_rank(vocab_dim) * el.shape[0],
+            mesh.get_group(vocab_dim))
+
+    fn = local_map(local, out_placements=(rows,),
+                   in_placements=(rows, lay(Replicate(), Shard(0))),
+                   in_grad_placements=(rows, lay(Partial(), Shard(0))),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(tokens, emb)
 
 
 def logits_from_hidden(params, h, cfg: ModelConfig):
     """Logits through the tied embedding or the untied ``unembed``."""
     cdt = _dtype(cfg.compute_dtype)
-    return h.to(cdt) @ _unembedding(params, cfg).to(cdt)  # (.., d) @ (d, V)
+    return h.to(cdt) @ SH.gather_fsdp(_unembedding(params, cfg)).to(cdt)  # (.., d) @ (d, V)
 
 
 def mask_padded_vocab(logits, cfg: ModelConfig, fill=NEG_INF):
@@ -516,10 +689,12 @@ def cross_entropy_chunked(params, h, targets, cfg: ModelConfig,
     return tot / torch.clamp(cnt, min=1)
 
 
-def _ce_logits(hi, w, vocab_size: int, cdt):
-    """One chunk's float32 logits, the vocabulary's padding at NEG_INF."""
+def _ce_logits(hi, w, vocab_size: int, cdt, offset: int = 0):
+    """One chunk's float32 logits over the vocabulary columns of ``w``
+    (the first one at id ``offset``), the vocabulary's padding at
+    NEG_INF."""
     logits = (hi.to(cdt) @ w.to(cdt)).float()
-    logits[..., vocab_size:] = NEG_INF
+    logits[..., max(vocab_size - offset, 0):] = NEG_INF
     return logits
 
 
@@ -533,14 +708,28 @@ def _ce_chunks(h, targets, chunk: int):
     return h, targets, (S + pad) // chunk
 
 
+def _vocab_sum(x, group, op: str = "sum"):
+    """``x`` reduced over the ranks that share the vocabulary (itself
+    without a group)."""
+    return x if group is None else funcol.all_reduce(x, op, group)
+
+
 class _FlashCrossEntropy(torch.autograd.Function):
     """The reference's ``flash_cross_entropy`` (a ``custom_vjp``): the sum
     of token NLLs, saving only each chunk's log-sum-exp; the backward
-    recomputes each chunk's logits, so the (S, V) logits never persist."""
+    recomputes each chunk's logits, so the (S, V) logits never persist.
+
+    ``vocab``: None, or (offset, group) when ``w`` holds the vocabulary
+    columns from ``offset`` on and the other columns lie on the other
+    ranks of ``group`` (Megatron's vocab-parallel cross-entropy: the
+    log-sum-exp, the target's logit and dh are summed over the group).
+    """
 
     @staticmethod
-    def forward(ctx, h, w, targets, vocab_size, chunk, cdt_name):
+    def forward(ctx, h, w, targets, vocab_size, chunk, cdt_name,
+                vocab=None):
         cdt = _dtype(cdt_name)
+        offset, group = vocab or (0, None)
         chunk = min(chunk, h.shape[1])
         hc, tc, n_chunks = _ce_chunks(h, targets, chunk)
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -548,45 +737,89 @@ class _FlashCrossEntropy(torch.autograd.Function):
         for c in range(n_chunks):
             hi = hc[:, c * chunk:(c + 1) * chunk]
             ti = tc[:, c * chunk:(c + 1) * chunk]
-            logits = _ce_logits(hi, w, vocab_size, cdt)
-            lse = torch.logsumexp(logits, dim=-1)
-            tgt = logits.gather(-1, ti.clamp(min=0).long()[..., None])[..., 0]
+            logits = _ce_logits(hi, w, vocab_size, cdt, offset)
+            if group is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                tgt = logits.gather(-1, ti.clamp(min=0).long()[..., None])[
+                    ..., 0]
+            else:
+                m = _vocab_sum(logits.amax(dim=-1), group, "max")
+                se = _vocab_sum((logits - m[..., None]).exp().sum(dim=-1),
+                                group)
+                lse = m + torch.log(se)
+                idx = ti.long() - offset
+                mine = (idx >= 0) & (idx < logits.shape[-1])
+                tgt = logits.gather(
+                    -1, idx.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+                tgt = _vocab_sum(torch.where(mine, tgt, 0.0), group)
             tot = tot + torch.where(ti >= 0, lse - tgt, 0.0).sum()
             lses.append(lse)
-        ctx.static = (vocab_size, chunk, cdt)
+        ctx.static = (vocab_size, chunk, cdt, offset, group)
         ctx.save_for_backward(h, w, targets, torch.stack(lses))
         return tot
 
     @staticmethod
     def backward(ctx, g):
         h, w, targets, lses = ctx.saved_tensors
-        vocab_size, chunk, cdt = ctx.static
+        vocab_size, chunk, cdt, offset, group = ctx.static
         B, S, d = h.shape
+        Vl = w.shape[-1]
         hc, tc, n_chunks = _ce_chunks(h, targets, chunk)
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
         dhs = []
         for c in range(n_chunks):
             hi = hc[:, c * chunk:(c + 1) * chunk]
             ti = tc[:, c * chunk:(c + 1) * chunk]
-            logits = _ce_logits(hi, w, vocab_size, cdt)
+            logits = _ce_logits(hi, w, vocab_size, cdt, offset)
             p = logits.sub_(lses[c][..., None]).exp_()  # softmax
             # dL/dlogits = (p - onehot(target)) * valid * g
-            idx = ti.clamp(min=0).long()[..., None]
-            dlog = p.scatter_(-1, idx, p.gather(-1, idx) - 1.0)
+            local = ti.long() - offset
+            idx = local.clamp(0, Vl - 1)[..., None]
+            hit = ((local >= 0) & (local < Vl)).float()[..., None]
+            dlog = p.scatter_(-1, idx, p.gather(-1, idx) - hit)
             dlog = dlog.mul_((ti >= 0).float()[..., None]).mul_(g)
             dlog = dlog.to(cdt)
-            dhs.append(dlog @ w.to(cdt).t())
+            dhs.append(_vocab_sum(dlog @ w.to(cdt).t(), group))
             dw = dw + (hi.to(cdt).reshape(-1, d).t()
                        @ dlog.reshape(-1, dlog.shape[-1])).float()
         dh = torch.cat(dhs, dim=1)[:, :S]
-        return dh.to(h.dtype), dw.to(w.dtype), None, None, None, None
+        return dh.to(h.dtype), dw.to(w.dtype), None, None, None, None, None
+
+
+def _flash_ce_mesh(h, w, targets, vocab_size: int, chunk: int,
+                   compute_dtype: str):
+    """The sharded loss: each rank takes its rows of h and targets (the
+    mesh dims that shard h's batch) and its vocabulary columns of w (the
+    first other mesh dim that shards them); every other mesh dim sees
+    both whole. Returns the DTensor sum, partial over the batch's dims."""
+    mesh = h.device_mesh
+    lay, vocab_dim = _vocab_parallel(h, w, 1)
+    rows = lay(Shard(0), Replicate())
+
+    def local(hl, wl, tl):
+        vocab = None
+        if vocab_dim is not None:
+            vocab = (mesh.get_local_rank(vocab_dim) * wl.shape[-1],
+                     mesh.get_group(vocab_dim))
+        return _FlashCrossEntropy.apply(hl, wl, tl, vocab_size, chunk,
+                                        compute_dtype, vocab)
+
+    fn = local_map(local, out_placements=(lay(Partial(), Replicate()),),
+                   in_placements=(rows, lay(Replicate(), Shard(1)), rows),
+                   in_grad_placements=(rows, lay(Partial(), Shard(1)), rows),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(h, w, targets)
 
 
 def flash_cross_entropy(h, w, targets, vocab_size: int, chunk: int,
                         compute_dtype: str):
     """Sum of token NLLs. h: (B,S,d), w: (d,Vp), targets: (B,S) (-1 =
     pad); logits in ``compute_dtype`` products, chunks of ``chunk``
-    positions."""
+    positions. DTensors take the vocab-parallel loss (see
+    :class:`_FlashCrossEntropy`) through ``local_map``."""
+    if isinstance(h, DTensor):
+        return _flash_ce_mesh(h, w, targets, vocab_size, chunk,
+                              compute_dtype)
     return _FlashCrossEntropy.apply(h, w, targets, vocab_size, chunk,
                                     compute_dtype)
 

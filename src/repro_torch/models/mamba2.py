@@ -17,14 +17,18 @@ shared by every head.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype, dense_init
+from repro_torch.train import sharding as SH
 
 
 class Mamba2Mixer(torch.nn.Module):
@@ -77,12 +81,13 @@ def _softplus(x):
 def _causal_conv(x, w, b, state=None):
     """Depthwise causal conv1d + silu. x: (B,S,C), w: (Kc,C); state: (B,Kc-1,C)."""
     Kc = w.shape[0]
-    if state is None:
-        xp = F.pad(x, (0, 0, Kc - 1, 0))
-    else:
-        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    if state is None:  # zeros before the sequence (F.pad, but a DTensor
+        # of some torch releases loses a placement in constant_pad_nd)
+        state = SH.like(torch.zeros((x.shape[0], Kc - 1, x.shape[2]),
+                                    dtype=x.dtype, device=x.device), x)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
     S = x.shape[1]
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros_like(x, dtype=torch.float32)
     for i in range(Kc):
         out = out + xp[:, i:i + S, :].float() * w[i].float()
     out = F.silu(out + b)
@@ -101,7 +106,15 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int):
     (an exactly zero contribution: the scan is causal), the rows are laid
     out head-major for :func:`~repro_torch.kernels.ops.ssd_scan`, and
     ``x · D`` is added to what it returns.
+
+    DTensors (the sharded model) go through ``local_map``: each rank scans
+    its own rows. The scan is row-local, so a mesh dim that shards x's
+    batch (its dim 0) or heads (its dim 2) splits whole rows; the inputs
+    are laid out to match (B and C on the batch's dims, A and D on the
+    heads') and every other mesh dim is replicated first.
     """
+    if isinstance(x, DTensor):
+        return _ssd_local_map(x, dt, A, Bm, Cm, D, chunk)
     Bsz, S, nh, hd = x.shape
     ds = Bm.shape[-1]
     Q = min(chunk, S)
@@ -129,14 +142,37 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int):
     return y[:, :S0]
 
 
+def _ssd_local_map(x, dt, A, Bm, Cm, D, chunk: int):
+    roles = ["batch" if p == Shard(0) else "heads" if p == Shard(2) else None
+             for p in x.placements]
+
+    def lay(on_batch, on_heads):
+        return tuple(on_batch if r == "batch" else
+                     on_heads if r == "heads" else Replicate() for r in roles)
+
+    rows = lay(Shard(0), Shard(2))  # x, dt and y
+    per_head = lay(Replicate(), Shard(0))  # A, D
+    per_batch = lay(Shard(0), Replicate())  # B, C
+    # a rank's gradient of A, D (B, C) sums over its rows alone
+    d_head, d_batch = lay(Partial(), Shard(0)), lay(Shard(0), Partial())
+    fn = local_map(functools.partial(ssd_chunked, chunk=chunk),
+                   out_placements=(rows,),
+                   in_placements=(rows, rows, per_head, per_batch, per_batch,
+                                  per_head),
+                   in_grad_placements=(rows, rows, d_head, d_batch, d_batch,
+                                       d_head),
+                   device_mesh=x.device_mesh, redistribute_inputs=True)
+    return fn(x, dt, A, Bm, Cm, D)
+
+
 def _project(p, x, cfg: ModelConfig):
     cdt = _dtype(cfg.compute_dtype)
     xc = x.to(cdt)
-    z = xc @ p.wz.to(cdt)
-    xs = xc @ p.wx.to(cdt)
-    Bm = xc @ p.wB.to(cdt)
-    Cm = xc @ p.wC.to(cdt)
-    dtr = xc @ p.wdt.to(cdt)
+    z = xc @ SH.gather_fsdp(p.wz).to(cdt)
+    xs = xc @ SH.gather_fsdp(p.wx).to(cdt)
+    Bm = xc @ SH.gather_fsdp(p.wB).to(cdt)
+    Cm = xc @ SH.gather_fsdp(p.wC).to(cdt)
+    dtr = xc @ SH.gather_fsdp(p.wdt).to(cdt)
     return z, xs, Bm, Cm, dtr
 
 
@@ -146,7 +182,8 @@ def _gated_out(p, y, z, x_dtype, cfg: ModelConfig):
     yz = y * F.silu(z.float())
     ms = (yz * yz).mean(dim=-1, keepdim=True)
     yz = yz * torch.rsqrt(ms + 1e-6) * p.norm_scale
-    return (yz.to(cdt) @ p.out_proj.to(cdt)).to(x_dtype)
+    return SH.reduce_partial(
+        yz.to(cdt) @ SH.gather_fsdp(p.out_proj).to(cdt)).to(x_dtype)
 
 
 def mamba_forward(p, x, cfg: ModelConfig):

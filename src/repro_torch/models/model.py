@@ -5,7 +5,9 @@ of attention or Mamba-2 layers, each followed by a dense MLP, a MoE layer
 or nothing; for an encoder-decoder (``enc_layers``) an encoder stack over
 precomputed frame embeddings and a cross-attention in every decoder
 block; for a vision-language model (``num_patches``) projected patch
-embeddings prepended to the text. The parameters are a :class:`Model`
+embeddings prepended to the text. The activations pass the sharding
+constraints of :mod:`repro_torch.train.sharding` where the reference's
+do (identities outside its ``mesh_axes``). The parameters are a :class:`Model`
 module whose ``layers`` hold one ``{"pos<i>": Block}`` per period (and
 ``enc_layers`` one :class:`Block` per encoder layer), where the reference
 stacks each leaf on a leading axis; the reference's ``lax.scan`` over
@@ -33,6 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.train import sharding as SH
 
 # an encoder layer: bidirectional attention, then a dense MLP
 ENC_SPEC = LayerSpec(kind="attn", mlp="dense")
@@ -95,9 +98,13 @@ class Model(torch.nn.Module):
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """Weights drawn from a ``torch.Generator`` seeded with ``seed``, on
     ``device`` (CUDA unless the caller passes another; raises without a
-    card). The parameters are frozen; training turns them on."""
+    card). On ``meta`` the tensors have shapes and dtypes and no data (the
+    dry run's stand-ins; a meta generator does not exist, so a CPU one is
+    passed and draws nothing). The parameters are frozen; training turns
+    them on."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
     return Model(cfg, gen, device=dev)
 
 
@@ -140,9 +147,10 @@ def _apply_pos_train(pp: Block, h, cfg: ModelConfig, spec: LayerSpec,
 
 def _period(period, h, enc_out, cfg: ModelConfig):
     """One period: (h, the MoE aux losses of its positions summed)."""
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = SH.like(torch.zeros((), dtype=torch.float32, device=h.device), h)
     for i, spec in enumerate(cfg.period):
         h, a = _apply_pos_train(period[f"pos{i}"], h, cfg, spec, enc_out)
+        h = SH.constrain_acts(h)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -159,9 +167,10 @@ def forward_hidden(params: Model, tokens: torch.Tensor, cfg: ModelConfig, *,
     h = L.embed_tokens(params.embed, tokens, cfg)
     if cfg.num_patches and frontend_embeds is not None:
         cdt = L._dtype(cfg.compute_dtype)
-        pe = frontend_embeds.to(cdt) @ params.patch_proj.to(cdt)
+        pe = frontend_embeds.to(cdt) @ SH.gather_fsdp(params.patch_proj).to(cdt)
         h = torch.cat([pe, h], dim=1)
     enc_out = encode(params, frontend_embeds, cfg) if cfg.enc_layers else None
+    h = SH.constrain_acts(h)
     remat = _remat(params, cfg)
     auxs = []
     for period in params.layers:
@@ -241,8 +250,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, ctx: int,
 
 
 def _greedy(params: Model, h, cfg: ModelConfig):
+    """The most likely token of each row; a DTensor's logits (one
+    position a row) are gathered whole on every rank first."""
     logits = L.logits_from_hidden(params, h, cfg).float()
-    logits = L.mask_padded_vocab(logits, cfg)
+    logits = L.mask_padded_vocab(SH.replicate(logits), cfg)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -278,7 +289,7 @@ def decode_step(params: Model, state, token, cfg: ModelConfig):
 def _q_only(p, x, cfg: ModelConfig):
     cdt = L._dtype(cfg.compute_dtype)
     B, S, _ = x.shape
-    q = x.to(cdt) @ p.wq.to(cdt)
+    q = x.to(cdt) @ SH.gather_fsdp(p.wq).to(cdt)
     if cfg.qkv_bias:
         q = q + p.bq.to(cdt)
     return q.reshape(B, S, cfg.n_heads, cfg.d_head)
@@ -293,7 +304,8 @@ def _cross_decode(pp: Block, h, xkv, cfg: ModelConfig):
         _q_only(pp.xattn, L.apply_norm(pp.norm_x, h, cfg), cfg), k, v,
         causal=False)
     cdt = L._dtype(cfg.compute_dtype)
-    return o.reshape(h.shape[0], 1, cfg.d_qkv).to(cdt) @ pp.xattn.wo.to(cdt)
+    return SH.reduce_partial(o.reshape(h.shape[0], 1, cfg.d_qkv).to(cdt)
+                             @ SH.gather_fsdp(pp.xattn.wo).to(cdt))
 
 
 def _encode_xkv(params: Model, enc_out, cfg: ModelConfig):
@@ -304,9 +316,9 @@ def _encode_xkv(params: Model, enc_out, cfg: ModelConfig):
     B, Skv, _ = enc_out.shape
     e = enc_out.to(cdt)
     shape = (B, Skv, cfg.n_kv_heads, cfg.d_head)
-    return [{f"pos{i}": ((e @ period[f"pos{i}"].xattn.wk.to(cdt)).reshape(
+    return [{f"pos{i}": ((e @ SH.gather_fsdp(period[f"pos{i}"].xattn.wk).to(cdt)).reshape(
                  shape),
-                         (e @ period[f"pos{i}"].xattn.wv.to(cdt)).reshape(
+                         (e @ SH.gather_fsdp(period[f"pos{i}"].xattn.wv).to(cdt)).reshape(
                  shape))
              for i in range(len(cfg.period))}
             for period in params.layers]

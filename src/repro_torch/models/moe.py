@@ -16,12 +16,16 @@ within float32 rounding).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.train import sharding as SH
 from repro_torch.models.layers import (
     NEG_INF, _dtype, _frozen, activate, dense_init, mlp_weights)
 
@@ -69,14 +73,15 @@ def _top(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def apply_moe(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (out in x's dtype, the Switch-style
-    load-balancing aux loss, float32)."""
-    cdt = _dtype(cfg.compute_dtype)
+def _route(x, router, C: int, K: int, cdt):
+    """Row-local dispatch: each expert's top-C tokens of the row, gathered.
+    Returns xe (B, E, C, d) in ``cdt``, their indices into S (B, E, C),
+    their gates (0 for a token the expert did not pick), and the row
+    means of the aux loss: the fraction of tokens routed to each expert
+    and its mean probability, (E,) each."""
     B, S, d = x.shape
-    E, K = cfg.moe_num_experts, cfg.moe_top_k
-
-    probs = torch.softmax(x.float() @ p.router, dim=-1)  # (B, S, E)
+    probs = torch.softmax(x.float() @ router, dim=-1)  # (B, S, E)
+    E = probs.shape[-1]
     top_p, top_e = _top(probs, K)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)  # renormalise
 
@@ -85,24 +90,81 @@ def apply_moe(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     chose.scatter_(-1, top_e, top_p)
     score = torch.where(chose > 0, chose, NEG_INF).transpose(1, 2)
 
-    C = expert_capacity(cfg, S)
     sel_score, sel_idx = _top(score, C)  # (B, E, C) indices into S
     weight = torch.where(sel_score > NEG_INF / 2, sel_score, 0.0)
 
     rows = torch.arange(B, device=x.device)[:, None]
     xe = x.to(cdt)[rows, sel_idx.reshape(B, E * C)].reshape(B, E, C, d)
-    gate = (torch.einsum("becd,edf->becf", xe, p.w_gate.to(cdt))
-            if cfg.mlp_act == "swiglu" else None)
-    h = activate(torch.einsum("becd,edf->becf", xe, p.w_up.to(cdt)), gate,
-                 cfg)
-    ye = torch.einsum("becf,efd->becd", h, p.w_down.to(cdt))  # (B,E,C,d)
-
-    yw = ye.float() * weight[..., None]
-    flat = (sel_idx + rows[..., None] * S).reshape(-1)
-    out = torch.zeros((B * S, d), dtype=torch.float32, device=x.device)
-    out.index_add_(0, flat, yw.reshape(-1, d))
-
     frac_tokens = (chose > 0).float().mean(dim=(0, 1))  # (E,)
     frac_prob = probs.mean(dim=(0, 1))
+    return xe, sel_idx, weight, frac_tokens, frac_prob
+
+
+def _combine(ye, sel_idx, weight, S: int, dtype):
+    """Row-local: the experts' outputs (B, E, C, d) weighted by their gates
+    and added back at their tokens, (B, S, d) in ``dtype``."""
+    B, d = ye.shape[0], ye.shape[-1]
+    rows = torch.arange(B, device=ye.device)[:, None]
+    yw = ye.float() * weight[..., None]
+    flat = (sel_idx + rows[..., None] * S).reshape(-1)
+    out = torch.zeros((B * S, d), dtype=torch.float32, device=ye.device)
+    out.index_add_(0, flat, yw.reshape(-1, d))
+    return out.reshape(B, S, d).to(dtype)
+
+
+def _row_local(fn, x, n_rows: int, n_whole: int, outs):
+    """``fn`` through ``local_map`` for a DTensor ``x`` (B, ...): the mesh
+    dims that shard x's batch evenly shard dim 0 of the first ``n_rows``
+    arguments (the next ``n_whole`` are whole on every rank, their
+    gradients partial sums) and of each output
+    that ``outs`` calls "rows" (a "mean" is a mean over the rows); every
+    other mesh dim is replicated."""
+    mesh = x.device_mesh
+    batch = [p == Shard(0) and x.shape[0] % mesh.size(i) == 0
+             for i, p in enumerate(x.placements)]
+
+    def lay(on_batch):
+        return tuple(on_batch if b else Replicate() for b in batch)
+
+    return local_map(
+        fn, device_mesh=mesh, redistribute_inputs=True,
+        out_placements=tuple(lay(Shard(0) if o == "rows" else Partial("avg"))
+                             for o in outs),
+        in_placements=(lay(Shard(0)),) * n_rows + (lay(Replicate()),) * n_whole,
+        # a rank's gradient of a whole argument sums over its rows alone
+        in_grad_placements=(lay(Shard(0)),) * n_rows
+        + (lay(Partial()),) * n_whole)
+
+
+def apply_moe(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d). Returns (out in x's dtype, the Switch-style
+    load-balancing aux loss, float32). Dispatch and combine are row-local:
+    for DTensors (the sharded model) they run on each rank's rows through
+    ``local_map``, and the expert products between them on DTensors."""
+    cdt = _dtype(cfg.compute_dtype)
+    B, S, d = x.shape
+    E, K = cfg.moe_num_experts, cfg.moe_top_k
+    C = expert_capacity(cfg, S)
+    route = functools.partial(_route, C=C, K=K, cdt=cdt)
+    combine = functools.partial(_combine, S=S, dtype=x.dtype)
+    mesh = isinstance(x, DTensor)
+    if mesh:
+        route = _row_local(route, x, 1, 1,
+                           ("rows", "rows", "rows", "mean", "mean"))
+        combine = _row_local(combine, x, 3, 0, ("rows",))
+    xe, sel_idx, weight, frac_tokens, frac_prob = route(x, p.router)
+    # keep the dispatch batch-sharded: the expert weights are gathered,
+    # the token batch is not replicated
+    xe = SH.constrain(xe, ("batch", None, None, None))
+    w_up, w_down = SH.gather_fsdp(p.w_up), SH.gather_fsdp(p.w_down)
+    gate = (torch.einsum("becd,edf->becf", xe,
+                         SH.gather_fsdp(p.w_gate).to(cdt))
+            if cfg.mlp_act == "swiglu" else None)
+    h = activate(torch.einsum("becd,edf->becf", xe, w_up.to(cdt)), gate,
+                 cfg)
+    h = SH.constrain(h, ("batch", None, None, "model"))
+    ye = torch.einsum("becf,efd->becd", h, w_down.to(cdt))  # (B,E,C,d)
+    ye = SH.constrain(ye, ("batch", None, None, None))
+    out = combine(ye, sel_idx, weight)
     aux = E * torch.sum(frac_tokens * frac_prob)
-    return out.reshape(B, S, d).to(x.dtype), aux
+    return out, aux

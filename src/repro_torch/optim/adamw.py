@@ -18,6 +18,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from repro_torch.train import sharding as SH
+
 NO_DECAY = frozenset({
     "scale", "bias", "A_log", "D", "dt_bias", "norm_scale",
     "bq", "bk", "bv", "conv_bx", "conv_bB", "conv_bC",
@@ -72,8 +74,8 @@ def init(params: torch.nn.Module, cfg: OptConfig) -> OptState:
     named = dict(params.named_parameters())
     dev = next(iter(named.values())).device
 
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros():  # of each parameter's placements too, when a DTensor
+        return {n: torch.zeros_like(p, dtype=dt).detach()
                 for n, p in named.items()}
 
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -98,7 +100,7 @@ def update(grads: Dict[str, torch.Tensor], state: OptState,
     step = state.step + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
-    scale = torch.minimum(_f32(1.0).to(gnorm.device),
+    scale = torch.minimum(SH.like(_f32(1.0).to(gnorm.device), gnorm),
                           cfg.clip_norm / torch.clamp(gnorm, min=1e-9))
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.float()
@@ -107,15 +109,15 @@ def update(grads: Dict[str, torch.Tensor], state: OptState,
     new_m, new_v = {}, {}
     for name, p in params.named_parameters():
         g, m, v = grads[name], state.m[name], state.v[name]
-        gf = g.float() * scale
+        gf = g.float() * SH.like(scale, g)
         mf = m.float() * b1 + (1 - b1) * gf
         vf = v.float() * b2 + (1 - b2) * torch.square(gf)
-        mhat = mf / bc1
-        vhat = vf / bc2
+        mhat = mf / SH.like(bc1, mf)
+        vhat = vf / SH.like(bc2, vf)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
         if decayable(name):
             delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        p.copy_((p.float() - SH.like(lr, delta) * delta).to(p.dtype))
         new_m[name] = mf.to(m.dtype)
         new_v[name] = vf.to(v.dtype)
     return params, OptState(step=step, m=new_m, v=new_v), {

@@ -6,13 +6,16 @@ accumulators, ``a + g.float() / accum`` as in the reference, cast back to
 each parameter's dtype before the update. Gradients come from autograd
 (``torch.autograd.grad``); a parameter the loss does not reach (a norm
 of a position without an MLP) gets a zero gradient, as ``jax.grad``
-gives it.
+gives it. The step takes DTensors too (parameters and moments placed on
+a mesh, and the batch's rows; see :mod:`repro_torch.train.sharding`):
+run it under that module's ``mesh_axes``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as MDL
 from repro_torch.models.config import ModelConfig
@@ -34,6 +37,20 @@ def _grads(total, named):
             for (n, p), g in zip(named, gs)}
 
 
+def _split(x, accum: int):
+    """``accum`` microbatches of rows: consecutive blocks of the batch, or
+    of each rank's own rows for a DTensor batch (a microbatch is then
+    every rank's i-th block, and no row moves)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
+    local = x.to_local()
+    local = local.reshape(accum, local.shape[0] // accum, *local.shape[1:])
+    shape = (x.shape[0] // accum,) + tuple(x.shape[1:])
+    return [DTensor.from_local(m, x.device_mesh, x.placements,
+                               run_check=False, shape=shape,
+                               stride=m.stride()) for m in local]
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
                     accum: int = 1):
     """Returns train_step(params, opt_state, tokens, targets[, frontend])
@@ -52,13 +69,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
             total, metrics = loss_fn(params, tokens, targets, frontend)
             grads = _grads(total, named)
         else:
-            def split(x):
-                return x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
-
-            toks, tgts = split(tokens), split(targets)
-            fes = split(frontend) if frontend is not None else None
-            g_acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device) for n, p in named}
+            toks, tgts = _split(tokens, accum), _split(targets, accum)
+            fes = _split(frontend, accum) if frontend is not None else None
+            g_acc = {n: torch.zeros_like(p, dtype=torch.float32).detach()
+                     for n, p in named}
             total, ms = 0.0, []
             for i in range(accum):
                 t, m = loss_fn(params, toks[i], tgts[i],

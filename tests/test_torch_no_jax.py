@@ -39,7 +39,9 @@ for name in ("union.experiment", "union.planner", "union.report",
              "union.serve.__main__", "core.eventgen", "models.moe",
              "models.convert", "optim.adamw", "train.train_step",
              "data.pipeline", "checkpoint.manager", "launch.train",
-             "configs.whisper_medium", "configs.internvl2_1b"):
+             "configs.whisper_medium", "configs.internvl2_1b",
+             "launch.mesh", "launch.specs", "launch.roofline",
+             "launch.dryrun", "train.sharding"):
     assert "repro_torch." + name in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -71,7 +73,9 @@ def test_no_port_source_imports_jax_or_repro():
                 "union/serve/__main__.py", "union/serve/server.py",
                 "core/eventgen.py", "models/moe.py", "optim/adamw.py",
                 "train/train_step.py", "data/pipeline.py",
-                "checkpoint/manager.py", "launch/train.py"):
+                "checkpoint/manager.py", "launch/train.py",
+                "launch/mesh.py", "launch/specs.py", "launch/roofline.py",
+                "launch/dryrun.py", "train/sharding.py"):
         assert PORT / rel in files, rel
     hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
             for p in files for m in IMPORT.finditer(p.read_text())]
