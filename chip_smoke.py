@@ -74,7 +74,7 @@ its seconds, and any failure raises (non-zero exit, no result line):
    chunk under the profiler (busy share); the first 128 eager ticks on
    the card and on the port's CPU path with equal digests every 64 ticks;
 8. ``paper_1d_members``: four members of one batch at the 1D paper scale
-   (seeds 0-3 with their own placements; member 2 with slowed ranks,
+   to 5 ms (seeds 0-3 with their own placements; member 2 with slowed ranks,
    member 3 with 2 % of the fabric links dead), each equal (digests) to
    its own B = 1 run; member-virtual-ms per wall s, device ms a tick and
    peak device memory at B = 1, 4 and 8;
@@ -109,6 +109,16 @@ its seconds, and any failure raises (non-zero exit, no result line):
    wall s, the host share outside the replays, engine-cache hits and
    builds, peak memory, the plan, ``format_results`` and the outage's
    interference matrix;
+   ``member_split``: the facade on workload1 at the 1D paper scale, 4
+   members (seeds 0-3) to 2 ms, with the device list of a one-card host
+   (one stacked B = 4 run), then with ``local_devices`` patched to
+   ``[cuda:0, cuda:0]`` (two B = 2 replicas through ``Engine.prun``, in
+   turn), then over the real cards where there are several: each split
+   cell's report equal to the stacked one's (report fields and integers
+   exact, other floats to rtol 1e-5; how many leaves came out bit for
+   bit), the drain tick's and link demand's launches equal their calls
+   and the ticks on every replica; each run's wall and
+   member-virtual-ms per wall s;
    ``paper_fabrics``: workload1 + UR to 2 ms on the paper fat tree (k =
    32, 8,192 hosts, route width 6) and the paper torus (11 x 12 x 16 x 4,
    8,448 hosts, route width 21), each as in 7 (its line per fabric): the
@@ -189,7 +199,9 @@ its seconds, and any failure raises (non-zero exit, no result line):
    ``train_4k`` / ``single`` (256 fake ranks on meta tensors, started as
    a subprocess right after the build, in a temporary directory, so that
    it traces on the host while the card runs the phases above): its
-   roofline terms against the H100's rates, its collectives by kind,
+   ``flops_per_device`` and ``analysis.per_period.flops`` within 10 % of
+   the reference's record of the cell (constants written on the CPU),
+   its roofline terms against the H100's rates, its collectives by kind,
    its wall s; then its ``hlo:`` job at 128 ranks co-run with ``milc`` on
    the small 1D dragonfly through ``union.manager`` on the card (graph
    replays), the horizon cut to the ML job's first compute segment plus
@@ -201,7 +213,8 @@ its seconds, and any failure raises (non-zero exit, no result line):
    fabric's live pool, the SSD scan's also on ``lm_families``, its
    backward's on ``lm_train``'s 5 steps, both on ``lm_train_mesh``'s
    (``mesh_launches``), the simulator kernels' on the co-run
-   (``hybrid_launches``); its largest error against its plain version),
+   (``hybrid_launches``) and on ``member_split``'s two replicas
+   (``split_launches``); its largest error against its plain version),
    then the result line.
 
 Imports nothing of JAX or of the JAX package (``src/repro``); the card
@@ -1341,8 +1354,9 @@ def timed_run(eng, state):
             torch.cuda.max_memory_allocated() / 2**20)
 
 
-def phase_members(dev, cfg=PAPER_1D):
-    """Members of one batch at the 1D paper scale. Four members: seeds 0-3,
+def phase_members(dev, cfg=dict(PAPER_1D, horizon_ms=5.0)):
+    """Members of one batch at the 1D paper scale, to 5 ms (cut from 10
+    to keep the script inside its time). Four members: seeds 0-3,
     each with its own placement (``resolve(sc, seed=s)``: jobs and UR) and
     ``engine_seed(s)``; member 2 with a rank slowdown of 1.5 on a tenth of
     CosmoFlow's ranks; member 3 with entry 0 of the ``links2pct`` timeline
@@ -1911,6 +1925,156 @@ def phase_experiment(dev):
         outage_interference=matrix))
     return {k: sum(t["launches"].get(k, 0) for t in eng_tot.values())
             for k in ("drain_tick", "link_demand", "router_rate_drain")}
+
+
+# ---------------------------------------------------------------------------
+# member_split: a batched node's members split across devices
+# ---------------------------------------------------------------------------
+
+SPLIT_HORIZON_MS = 2.0
+
+
+def split_experiment():
+    """workload1 at the 1D paper scale (33 x 32 x 8, 53,856 links; RG,
+    ADP, 5 µs ticks), 4 members of seeds 0-3, to 2 ms: one batched node
+    of 4 plain cells."""
+    from repro_torch import union
+    from repro_torch.union.scenario import mix_scenario
+
+    sc = mix_scenario("workload1", topo="1d", scale="paper", placement="RG",
+                      routing="ADP", tick_us=5.0, horizon_ms=SPLIT_HORIZON_MS)
+    return union.Experiment(name="member_split", scenarios=[sc], members=4,
+                            base_seed=0)
+
+
+def report_leaves(rep, path="report"):
+    """{path: value} of a report's leaves, host-time keys left out."""
+    from torch_parity import HOST_TIME_KEYS
+
+    if isinstance(rep, dict):
+        out = {}
+        for k, v in rep.items():
+            if k not in HOST_TIME_KEYS:
+                out.update(report_leaves(v, f"{path}.{k}"))
+        return out
+    if isinstance(rep, (list, tuple)):
+        out = {}
+        for i, v in enumerate(rep):
+            out.update(report_leaves(v, f"{path}[{i}]"))
+        return out
+    return {path: rep}
+
+
+def phase_member_split(dev):
+    """``member_split``: ``split_experiment`` through the facade
+    (``repro_torch.union.run``) with the device list of a one-card host
+    (one stacked B = 4 ``run``), then with ``local_devices`` patched to
+    ``[cuda:0, cuda:0]`` (two replicas of B = 2 through ``Engine.prun``,
+    in turn on one engine), then, on a host of several cards, over the
+    real cards (replicas at once, one thread a card); the counts set to 0
+    just before each run and read just after. Each split cell's report
+    equals the stacked one's under ``torch_parity``'s contract (report
+    fields and integers exact, other floats to rtol 1e-5; the drain
+    tick's router windows are float atomics); on the split runs the drain
+    tick's and link demand's launches equal their calls and the ticks on
+    every replica. Prints each run's wall, member-virtual-ms per wall s,
+    the engine's totals and which report leaves came out bit for bit.
+    Returns the split runs' launches of both kernels."""
+    import torch
+
+    from repro_torch import device as DEV
+    from repro_torch import union
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import engine as ENG
+    from torch_parity import report_mismatches
+
+    t0 = time.perf_counter()
+    exp = split_experiment()
+    host = DEV.local_devices(dev)
+    runs = [("stacked", [dev]), ("split_one_card", [dev, dev])]
+    if len(host) > 1:
+        runs.append(("split_cards", host))
+    real = DEV.local_devices
+    rows, base, split_launches = {}, None, {}
+    try:
+        for label, devs in runs:
+            DEV.local_devices = lambda device=None, devs=devs: list(devs)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            w0 = time.perf_counter()
+            res = union.run(exp, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            counted = dict(launches=dict(ops.LAUNCHES), calls=dict(ops.CALLS))
+            tot = res.telemetry["engine"]["batched"]
+            need(len(res.cells) == 4 and tot["calls"] == 1,
+                 f"member_split/{label}: {len(res.cells)} cells, "
+                 f"{tot['calls']} engine calls")
+            for k in ("drain_tick", "link_demand"):
+                need(tot["launches"].get(k, 0) == tot["ticks"] > 0,
+                     f"member_split/{label}: {k} launched "
+                     f"{tot['launches'].get(k, 0)} times for "
+                     f"{tot['ticks']} ticks")
+            row = dict(devices=[str(d) for d in devs], wall_s=wall,
+                       node_wall_s=res.telemetry["node_kinds"]["batched"]
+                       ["wall_s"],
+                       member_virtual_ms_per_wall_s=sum(
+                           c.report["virtual_time_ms"] for c in res.cells)
+                       / res.telemetry["node_kinds"]["batched"]["wall_s"],
+                       engine=tot, engine_cache=res.engine_cache,
+                       counted_at_capture=counted)
+            if label == "stacked":
+                base = res
+                rows[label] = row
+                continue
+            # the replicas' own stats (Engine.prun's merged RunStats)
+            split = [e.last_run for e in ENG._ENGINE_CACHE.values()
+                     if e.last_run is not None and e.last_run.replicas]
+            need(len(split) == 1 and len(split[0].replicas) == len(devs),
+                 f"member_split/{label}: no prun of {len(devs)} replicas")
+            replicas = []
+            for r in split[0].replicas:
+                launched = {k: r.replays * r.graph_launches.get(k, 0)
+                            for k in ("drain_tick", "link_demand")}
+                calls = {k: r.replays * r.graph_calls.get(k, 0)
+                         for k in ("drain_tick", "link_demand")}
+                need(all(launched[k] == calls[k] == r.ticks > 0
+                         for k in launched),
+                     f"member_split/{label}: a replica launched {launched} "
+                     f"for {calls} calls and {r.ticks} ticks")
+                replicas.append(dict(ticks=r.ticks, replays=r.replays,
+                                     launches=launched,
+                                     device_ms=r.replay_device_ms))
+            for k in ("drain_tick", "link_demand"):
+                need(counted["launches"].get(k, 0) > 0,
+                     f"member_split/{label}: no {k} launch counted")
+            # each cell against the stacked run's
+            bit, leaves, not_bit = 0, 0, []
+            for got, want in zip(res.cells, base.cells):
+                need(got.key == want.key,
+                     f"member_split/{label}: cell {got.key} != {want.key}")
+                bad = report_mismatches(got.report, want.report,
+                                        f"cell {got.key}")
+                need(not bad, f"member_split/{label}: {bad[:10]}")
+                g, w = report_leaves(got.report), report_leaves(want.report)
+                leaves += len(w)
+                same = [p for p in w if same_value(g[p], w[p])]
+                bit += len(same)
+                not_bit += [f"{got.key}:{p}" for p in w if p not in same]
+            split_launches[label] = {k: tot["launches"].get(k, 0)
+                                     for k in ("drain_tick", "link_demand")}
+            rows[label] = dict(row, replicas=replicas,
+                               report_leaves=leaves, bit_for_bit=bit,
+                               not_bit_for_bit=not_bit[:40])
+            print(f"member_split/{label}: {bit} of {leaves} report leaves "
+                  f"bit for bit; wall {wall:.3f} s against the stacked "
+                  f"{rows['stacked']['wall_s']:.3f} s", flush=True)
+    finally:
+        DEV.local_devices = real
+    emit(dict(phase="member_split", seconds=time.perf_counter() - t0,
+              workload="workload1", horizon_ms=SPLIT_HORIZON_MS, members=4,
+              host_devices=len(host), runs=rows))
+    return split_launches["split_one_card"]
 
 
 def phase_fabrics(dev):
@@ -2997,6 +3161,13 @@ def phase_lm_train_mesh(dev, train_step_s, steps=2):
 
 DRYRUN_CELL = ("mistral_nemo_12b", "train_4k", "single")
 HYBRID_RANKS = 128
+# the reference's record of DRYRUN_CELL, written on the CPU by
+# ``PYTHONPATH=src python -m repro.launch.dryrun --arch mistral_nemo_12b
+# --shape train_4k --mesh single --accum 1``: its flops_per_device and
+# analysis.per_period.flops; the port's must lie within DRYRUN_FLOPS_TOL
+REF_DRYRUN_FLOPS = 419494803537920.0
+REF_DRYRUN_PERIOD_FLOPS = 9935653961728.0
+DRYRUN_FLOPS_TOL = 0.10
 
 
 def start_dryrun(tmp):
@@ -3051,6 +3222,16 @@ def phase_dryrun_hybrid(dev, dry):
     need(rec["n_devices"] == 256 and rec["flops_per_device"] > 0
          and rec["analysis"] is not None,
          f"dryrun_hybrid: record {sorted(rec)}")
+    flops = dict(
+        flops_per_device=(rec["flops_per_device"], REF_DRYRUN_FLOPS),
+        per_period_flops=(rec["analysis"]["per_period"]["flops"],
+                          REF_DRYRUN_PERIOD_FLOPS))
+    for what, (got, ref) in flops.items():
+        print(f"dryrun_hybrid: {what} {got:.6e} against the reference's "
+              f"{ref:.6e} ({got / ref:.4f}x)", flush=True)
+        need(abs(got / ref - 1.0) <= DRYRUN_FLOPS_TOL,
+             f"dryrun_hybrid: {what} {got} is {got / ref:.4f}x the "
+             f"reference's {ref}, beyond {DRYRUN_FLOPS_TOL}")
     src = from_dryrun_record(path)
     seg_ms = float(re.search(r"compute for ([0-9.]+) milliseconds",
                              src).group(1))
@@ -3085,6 +3266,8 @@ def phase_dryrun_hybrid(dev, dry):
               dryrun_wall_s=wall, lower_s=rec["lower_s"],
               compile_s=rec["compile_s"], roofline=rec["roofline"],
               flops_per_device=rec["flops_per_device"],
+              flops_vs_reference={k: dict(port=g, reference=r, ratio=g / r)
+                                  for k, (g, r) in flops.items()},
               bytes_per_device=rec["bytes_per_device"],
               wire_bytes_per_device=rec["wire_bytes_per_device"],
               collectives_by_kind=rec["collectives"]["by_kind_count"],
@@ -3192,6 +3375,8 @@ def run_phases(dev, dry, t0) -> int:
     free_engines()
     experiment_launches = phase_experiment(dev)
     free_engines()
+    split_launches = phase_member_split(dev)
+    free_engines()
     fabric_launches = phase_fabrics(dev)
     phase_front_doors(dev)
     free_engines()
@@ -3234,7 +3419,9 @@ def run_phases(dev, dry, t0) -> int:
                               for f, v in fabric_launches.items()},
              fabric_live=fabric_live(fabric_launches, "drain_tick"),
              # dryrun_hybrid's co-run of the hlo: job with milc
-             hybrid_launches=hybrid["drain_tick"]),
+             hybrid_launches=hybrid["drain_tick"],
+             # member_split's two replicas on one card (Engine.prun)
+             split_launches=split_launches["drain_tick"]),
         dict(name="link_demand", route="cuda",
              source="src/repro_torch/kernels/csrc/link_demand.cu",
              replaces="src/repro/netsim/engine.py:805",
@@ -3246,6 +3433,7 @@ def run_phases(dev, dry, t0) -> int:
                               for f, v in fabric_launches.items()},
              fabric_live=fabric_live(fabric_launches, "link_demand"),
              hybrid_launches=hybrid["link_demand"],
+             split_launches=split_launches["link_demand"],
              max_abs_err=max([r["max_abs_err"] for r in dem_rows]
                              + [launches1["link_demand_max_abs_err"]]
                              + [v["link_demand_max_abs_err"]

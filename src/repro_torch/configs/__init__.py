@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``configs/__init__.py``: every architecture
 of its registry is ported. ``get_config(name)`` returns the full
-published config; ``get_smoke_config(name)`` a reduced same-family config
+published config, ``all_configs()`` every architecture's by name;
+``get_smoke_config(name)`` a reduced same-family config
 for CPU tests (few layers, narrow width, tiny vocab, the same period
 structure). ``SHAPES`` are the dry run's input shapes (sequence length,
 global batch, step kind) and ``cell_applicable`` says which an
@@ -11,7 +12,7 @@ architecture runs.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -48,6 +49,11 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every architecture's full config, by its id."""
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 # --------------------------------------------------------------------------

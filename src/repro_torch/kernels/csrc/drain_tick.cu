@@ -325,18 +325,13 @@ extern "C" int drain_tick_launch(
   const int table_bytes = ((AR * (int)sizeof(float) + 15) / 16) * 16;
   if (table_bytes + rows_bytes <= kMaxSharedBytes) {
     const int smem = table_bytes + rows_bytes;
-    // the opt-in limit, raised at the first call and at each larger one
-    // (the hot-link slots' static shared memory counts against the 48 KB
-    // a block gets without it); a first call inside a graph capture sets
-    // it there
-    static int smem_allowed = 0;
-    if (smem > smem_allowed) {
-      err = cudaFuncSetAttribute(drain_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-      smem_allowed = smem;
-    }
+    // the opt-in limit, raised at the first call on a device and at each
+    // larger one (the hot-link slots' static shared memory counts against
+    // the 48 KB a block gets without it); a first call inside a graph
+    // capture sets it there
+    static int smem_allowed[sim_rows::kMaxDevices] = {0};
+    err = sim_rows::allow_smem(drain_kernel<true>, smem, smem_allowed);
+    if (err != cudaSuccess) return (int)err;
     drain_kernel<true><<<grid, threads, smem, s>>>(
         routes, bytes_rem, active, job, min_arrive, t, dt, bw, bw_stride,
         link_dst_router, count, M, K, Lp, n_routers, AR,

@@ -488,18 +488,14 @@ extern "C" int link_demand_launch(const int32_t* routes, const uint8_t* active,
   const int nw = member_words * 4 <= kFoldBitmapBytes ? (int)member_words : 0;
   const int words = nw > kBlockRun ? nw : kBlockRun;
   const int fold_smem = words * (int)sizeof(int32_t);
-  // the opt-in limit of dynamic shared memory, raised at the first call
-  // and at each larger one: the kernel's static shared memory counts
-  // against the 48 KB a block gets without it, so a dynamic size at or just
-  // under 48 KB (the paper fat tree's 12,288-word bitmap) needs it too
-  static int fold_smem_allowed = 0;
-  if (fold_smem > fold_smem_allowed) {
-    err = cudaFuncSetAttribute(link_fold_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               fold_smem);
-    if (err != cudaSuccess) return (int)err;
-    fold_smem_allowed = fold_smem;
-  }
+  // the opt-in limit of dynamic shared memory, raised at the first call on
+  // a device and at each larger one: the kernel's static shared memory
+  // counts against the 48 KB a block gets without it, so a dynamic size at
+  // or just under 48 KB (the paper fat tree's 12,288-word bitmap) needs it
+  // too
+  static int fold_smem_allowed[sim_rows::kMaxDevices] = {0};
+  err = sim_rows::allow_smem(link_fold_kernel, fold_smem, fold_smem_allowed);
+  if (err != cudaSuccess) return (int)err;
   const int64_t fold_blocks = kRunBlocks + (n_keys + kBig - 1) / kBig;
   link_fold_kernel<<<(unsigned)fold_blocks, kBig, fold_smem, st>>>(
       starts, count, slots, big, counters, n_keys, routes, active, bytes_rem,

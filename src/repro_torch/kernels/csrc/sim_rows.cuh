@@ -10,7 +10,8 @@
 // warp whose 32 messages are all inactive reads no row at all.
 //
 // nan_min, the least share on a route, serves drain_tick.cu and
-// router_tick.cu.
+// router_tick.cu; allow_smem, the launchers' opt-in of dynamic shared
+// memory, drain_tick.cu and link_demand.cu.
 
 #pragma once
 
@@ -62,6 +63,27 @@ inline int warps_per_block(int K) {
   const int per_warp = 32 * K * (int)sizeof(int32_t);
   int w = kMaxStageBytes / (per_warp > 0 ? per_warp : 1);
   return w > 8 ? 8 : w;
+}
+
+// Devices a launcher keeps an opt-in record for.
+constexpr int kMaxDevices = 64;
+
+// Raise ``func``'s limit of dynamic shared memory to ``bytes`` on the
+// current device unless ``allowed[device]`` (the launcher's record, zero
+// at first) already covers it. An attribute holds for the device it was
+// set on, so each device keeps its own record: the engine's replicas run
+// the same launcher on several cards, one host thread a card.
+template <typename F>
+inline cudaError_t allow_smem(F* func, int bytes, int* allowed) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= allowed[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(func, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) allowed[device] = bytes;
+  return err;
 }
 
 }  // namespace sim_rows

@@ -57,12 +57,16 @@ into one flat index.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (
+    Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -86,6 +90,10 @@ MASK32 = 0xFFFFFFFF
 # paper scenario captures and instantiates in about 0.2-0.4 s, one of 64
 # in about 3 s, and both replay at one rate (tools/graph_ticks_sweep.py)
 GRAPH_TICKS = 8
+# one capture at a time in the process: a capture reads the kernel
+# wrappers' counts around itself, and replicas on distinct cards run in
+# threads of their own (``Engine.prun``)
+_CAPTURE_LOCK = threading.Lock()
 
 
 class JobTable(NamedTuple):
@@ -227,6 +235,8 @@ class RunStats:
     counts (``repro_torch.kernels.ops``) taken while that graph was
     captured, so the launches of the call are ``replays`` times them.
     ``replay_device_ms`` is CUDA-event time around the replays.
+    ``replicas`` holds each replica's own stats when the call was
+    :meth:`Engine.prun` (:meth:`merged`), else nothing.
     """
 
     device: str
@@ -241,6 +251,32 @@ class RunStats:
     graph_calls: Dict[str, int] = field(default_factory=dict)
     graph_launches: Dict[str, int] = field(default_factory=dict)
     replay_device_ms: float = 0.0
+    replicas: Tuple["RunStats", ...] = ()
+
+    @classmethod
+    def merged(cls, device: str, parts: Sequence["RunStats"]) -> "RunStats":
+        """The stats of replicas' calls as one call's: counts and times
+        summed, ``captured`` if any replica captured. Every replica
+        replays a graph of the same shape, so each kept the same graph
+        counts, and ``replays`` times them stays the launches."""
+        first = parts[0]
+        if any(p.graph_launches != first.graph_launches
+               or p.graph_ticks != first.graph_ticks for p in parts):
+            raise ValueError("replicas replayed graphs of other counts")
+        return cls(
+            device=device,
+            ticks=sum(p.ticks for p in parts),
+            live_ticks=sum(p.live_ticks for p in parts),
+            liveness_reads=sum(p.liveness_reads for p in parts),
+            graph_ticks=first.graph_ticks,
+            replays=sum(p.replays for p in parts),
+            captured=any(p.captured for p in parts),
+            capture_s=sum(p.capture_s for p in parts),
+            instantiate_s=sum(p.instantiate_s for p in parts),
+            graph_calls=dict(first.graph_calls),
+            graph_launches=dict(first.graph_launches),
+            replay_device_ms=sum(p.replay_device_ms for p in parts),
+            replicas=tuple(parts))
 
 
 @dataclass
@@ -258,6 +294,11 @@ class Engine:
     :meth:`drop_graphs` frees them. An engine bound to a scenario's jobs
     (:func:`repro_torch.union.manager.bind_jobs`) shares the cached
     engine's tables and ``graphs`` and keeps its own stats.
+
+    ``replica(device)`` gives the engine at this envelope on another
+    device (:func:`get_engine` sets it to a cache lookup, so every engine
+    at one envelope shares one set of replicas); :meth:`prun` runs
+    member batches on them.
     """
 
     init_state: Callable
@@ -270,6 +311,8 @@ class Engine:
                                               repr=False)
     last_run: Optional[RunStats] = None
     last_window: Optional[RunStats] = None
+    replica: Optional[Callable[[torch.device], "Engine"]] = field(
+        default=None, repr=False)
 
     def __iter__(self):
         return iter((self.init_state, self.run, self.tick))
@@ -285,6 +328,52 @@ class Engine:
         out = self.run_fn(state, chunk, self.graphs, stats)
         self.last_run = stats
         return out
+
+    def prun(self, states: Sequence["SimState"],
+             chunk: int = 64) -> List["SimState"]:
+        """``run`` over D stacked member batches, the d-th on its own
+        device (the reference's ``pmap`` of ``run`` over a leading device
+        axis); returns their D final states, each on its device.
+
+        Batch d runs on this engine when it lies on this engine's device,
+        else on ``replica`` of its device. Batches on distinct devices run
+        at once, one host thread a device, all joined before a result is
+        read; batches on one device share its engine (one captured graph
+        and its buffers) and run in turn. ``last_run`` is the replicas'
+        stats merged (:meth:`RunStats.merged`)."""
+        groups: Dict[str, List[int]] = {}
+        for d, s in enumerate(states):
+            groups.setdefault(str(s.t.device), []).append(d)
+        engines = {dev: self if dev == str(self.device)
+                   else self._replica_on(torch.device(dev))
+                   for dev in groups}
+        out: List[Optional[SimState]] = [None] * len(states)
+        parts: List[Optional[RunStats]] = [None] * len(states)
+
+        def run_on(dev: str) -> None:
+            eng = engines[dev]
+            with (torch.cuda.device(dev) if eng.device.type == "cuda"
+                  else contextlib.nullcontext()):
+                for d in groups[dev]:
+                    out[d] = eng.run(states[d], chunk)
+                    parts[d] = eng.last_run
+
+        if len(groups) == 1:
+            run_on(next(iter(groups)))
+        else:
+            with ThreadPoolExecutor(len(groups)) as pool:
+                for f in [pool.submit(run_on, dev) for dev in groups]:
+                    f.result()
+        self.last_run = RunStats.merged(self.device.type, parts)
+        return out
+
+    def _replica_on(self, device: torch.device) -> "Engine":
+        if self.replica is None:
+            raise ValueError(
+                f"this engine has no replica on {device}: an engine of "
+                "build_engine runs on its own device only; get_engine's "
+                "engines have replicas")
+        return self.replica(device)
 
     def run_window(self, state: "SimState", t_stop) -> "SimState":
         """One scheduling window: tick until every member has stopped,
@@ -1223,6 +1312,10 @@ def build_engine(
         CUDA graph over static buffers (a copy of ``state``): the steps,
         then the last state copied back into the buffers and ``finish``
         of it, which writes ``flag``. A failure to capture raises."""
+        with _CAPTURE_LOCK:
+            return _capture(state, n, step, finish, flag, **buffers)
+
+    def _capture(state, n, step, finish, flag, **buffers) -> _TickGraph:
         static = _tree_map(torch.clone, state)
         # one eager step first, its result dropped: it builds the kernels
         # and sets up the libraries the tick calls, which must not happen
@@ -1234,7 +1327,12 @@ def build_engine(
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         calls0, launches0 = dict(KOPS.CALLS), dict(KOPS.LAUNCHES)
-        with torch.cuda.graph(graph):
+        # captured on a stream of this engine's device (torch's default
+        # capture stream lies on the device of the process's first
+        # capture), with unsafe calls barred in this thread only: the
+        # replicas on other cards replay meanwhile (``Engine.prun``)
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
             t0 = time.perf_counter()
             s = static
             for _ in range(n):
@@ -1508,6 +1606,11 @@ def get_engine(
         horizon_us=horizon_us, capacity=capacity, device=key[7],
         probes=probes, hist=hist,
     )
+    # its replicas on other devices: the cached engines of this envelope
+    eng.replica = lambda dev: get_engine(
+        topo, routing=routing, ur=ur, net=net, pool_size=pool_size,
+        horizon_us=horizon_us, capacity=capacity, device=dev,
+        probes=probes, hist=hist)
     _ENGINE_CACHE[key] = eng
     _evict_to_limit()
     _cache_gauges()
@@ -1560,6 +1663,10 @@ def stack_members(states: Sequence[SimState]) -> SimState:
     """Stack member states into one batch (leading member dim)."""
     return _tree_map(lambda *xs: torch.stack(xs), *states)
 
+
+def state_to(state: SimState, device) -> SimState:
+    """``state`` with every leaf on ``device`` (itself where they are)."""
+    return _tree_map(lambda x: x.to(device), state)
 
 
 # ---------------------------------------------------------------------------

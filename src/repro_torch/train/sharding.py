@@ -127,15 +127,38 @@ def gather_fsdp(w):
     return w.redistribute(w.device_mesh, keep)
 
 
+class _ReducePartial(torch.autograd.Function):
+    """Megatron's operator after a row-parallel product: all-reduce
+    forward, identity backward with the gradient pinned to the forward
+    output's placements. ``redistribute``'s own backward hands a partial
+    gradient on as it came; a product's backward then gathers the
+    weight's shard on ``model`` and runs at full width (some torch
+    releases' DTensor strategies pick that), where a replicated gradient
+    keeps it on the shard."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
 def reduce_partial(x):
     """Inside ``mesh_axes``, a DTensor's partial sums reduced (the
     all-reduce after a row-parallel product, Megatron's), so that what
-    follows sees whole values; otherwise ``x`` itself."""
+    follows sees whole values, and the gradient handed back to the
+    product replicated where the sums were partial
+    (:class:`_ReducePartial`); otherwise ``x`` itself."""
     if not active() or not isinstance(x, DTensor) or not any(
             p.is_partial() for p in x.placements):
         return x
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p.is_partial() else p for p in x.placements])
+    return _ReducePartial.apply(x, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
 
 
 def like(t, ref):

@@ -7,8 +7,9 @@ scenario ensembles *and* open-stream traces, crossed with a study grid
 of seeds × placements × routing × failures × queue policies. :func:`run`
 lowers it through the planner (:mod:`repro_torch.union.planner`) into
 engine-bucketed execution nodes, draws every engine from the
-process-wide cache in :mod:`repro_torch.netsim.engine` on one device
-(CUDA unless the caller asks for the CPU), and returns the same
+process-wide cache in :mod:`repro_torch.netsim.engine` on the run's
+device (CUDA unless the caller asks for the CPU; a batched node's
+members may spread over every local card, see below), and returns the same
 schema-versioned :class:`Results` container as the JAX package, which
 :mod:`repro_torch.union.report` renders through one summary/format
 pipeline.
@@ -38,8 +39,14 @@ Schema (all keys optional unless noted)::
 On the card every engine call replays captured CUDA graphs of the tick
 (:class:`~repro_torch.netsim.engine.Engine`): plain cells one stacked
 ``run``, cells with timed fault events ``run_window`` rounds with a
-per-member ``t_stop``, trace cells the scheduler's windows. A node's
-member batch runs on the run's one device.
+per-member ``t_stop``, trace cells the scheduler's windows. With D
+local devices (:func:`repro_torch.device.local_devices`, every visible
+card) and D > 1 dividing a vectorised node's plain members, the members
+split into D stacked chunks, one a device, run at once on the engine's
+replicas (:meth:`~repro_torch.netsim.engine.Engine.prun`, the
+reference's ``pmap``); otherwise they run as one stacked batch on the
+run's device. Timed-fault cells and trace cells stay on the run's
+device.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import device as DEV
 from repro_torch.device import resolve_device
 from repro_torch.netsim.engine import (
     _fetch,
@@ -59,6 +67,7 @@ from repro_torch.netsim.engine import (
     get_engine,
     member_state,
     stack_members,
+    state_to,
 )
 from repro_torch.obs import (
     Progress,
@@ -697,9 +706,10 @@ def _run_faulted(eng, inits, cells, host, tot):
 
 def _exec_batched(node, exp: Experiment, device,
                   tot) -> List[Tuple[int, CellResult]]:
-    """One engine from the shared cache, one batched call per node (and
-    window rounds for cells with timed fault events); ``tot`` sums the
-    engine calls' stats."""
+    """One engine from the shared cache, one batched call per node (one
+    batch a local device when they divide the members, on the engine's
+    replicas), and window rounds for cells with timed fault events;
+    ``tot`` sums the engine calls' stats."""
     host = node.host
     stats0 = engine_cache_stats()
     with span("engine.cache_get", cat="engine",
@@ -742,12 +752,25 @@ def _exec_batched(node, exp: Experiment, device,
               vmapped=exp.vmapped, timed_faults=len(timed_ix)):
         if plain_ix:
             p_inits = [inits[i] for i in plain_ix]
-            if exp.vmapped:
+            np_ = len(p_inits)
+            devs = DEV.local_devices(device)
+            D = len(devs)
+            if exp.vmapped and D > 1 and np_ % D == 0:
+                # members split across the devices: each runs an
+                # (n/D)-batch on the engine's replica there
+                chunk = np_ // D
+                finals = eng.prun([
+                    state_to(stack_members(p_inits[d * chunk:
+                                                   (d + 1) * chunk]), dev)
+                    for d, dev in enumerate(devs)])
+                _add_run(tot, eng.last_run)
+                p_states = [member_state(finals[i // chunk], i % chunk)
+                            for i in range(np_)]
+            elif exp.vmapped:
                 # every plain member in one stacked batch on the device
                 final = eng.run(stack_members(p_inits))
                 _add_run(tot, eng.last_run)
-                p_states = [member_state(final, i)
-                            for i in range(len(p_inits))]
+                p_states = [member_state(final, i) for i in range(np_)]
             else:
                 p_states = []
                 for s in p_inits:

@@ -175,8 +175,11 @@ def build(rs: ResolvedScenario, device=None, probes=None, hist=None,
 def bind_jobs(eng: Engine, rs: ResolvedScenario) -> Engine:
     """A cached (job-free) engine whose ``init_state`` defaults to this
     scenario's jobs and UR placement. It shares the cached engine's tables,
-    functions and captured graphs; its ``run``/``run_window`` write their
-    ``RunStats`` on it (``last_run``, ``last_window``)."""
+    functions, captured graphs and replicas on other devices (its
+    ``prun`` runs on the cached engines at this envelope, as the
+    reference's wrapper shares one pmap cache entry); its
+    ``run``/``run_window``/``prun`` write their ``RunStats`` on it
+    (``last_run``, ``last_window``)."""
     default_placements = [np.asarray(j.rank2node) for j in rs.jobs]
     if rs.ur is not None:
         default_placements.append(np.asarray(rs.ur.rank2node))

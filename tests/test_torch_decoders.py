@@ -134,6 +134,15 @@ def test_config_copies_match(arch):
         assert got.param_count() == want.param_count()
 
 
+def test_all_configs_match():
+    """``all_configs()`` has the reference's ids, in its order, and each
+    config equal to the reference's field for field."""
+    want, got = ref_configs.all_configs(), configs.all_configs()
+    assert list(got) == list(want)
+    for arch, cfg in want.items():
+        assert dataclasses.asdict(got[arch]) == dataclasses.asdict(cfg), arch
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_from_jax(setups, arch):
     """The tree has the JAX ``init_model``'s structure, shapes and dtypes,

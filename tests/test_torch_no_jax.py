@@ -41,7 +41,8 @@ for name in ("union.experiment", "union.planner", "union.report",
              "data.pipeline", "checkpoint.manager", "launch.train",
              "configs.whisper_medium", "configs.internvl2_1b",
              "launch.mesh", "launch.specs", "launch.roofline",
-             "launch.dryrun", "train.sharding"):
+             "launch.dryrun", "train.sharding", "device", "netsim.engine",
+             "union.manager", "configs"):
     assert "repro_torch." + name in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -75,7 +76,9 @@ def test_no_port_source_imports_jax_or_repro():
                 "train/train_step.py", "data/pipeline.py",
                 "checkpoint/manager.py", "launch/train.py",
                 "launch/mesh.py", "launch/specs.py", "launch/roofline.py",
-                "launch/dryrun.py", "train/sharding.py"):
+                "launch/dryrun.py", "train/sharding.py", "device.py",
+                "netsim/engine.py", "union/experiment.py",
+                "union/manager.py", "configs/__init__.py"):
         assert PORT / rel in files, rel
     hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
             for p in files for m in IMPORT.finditer(p.read_text())]
