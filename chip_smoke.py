@@ -32,16 +32,20 @@ its seconds, and any failure raises (non-zero exit, no result line):
    from the FLOPs and bytes the call needs, the achieved TFLOP/s and share
    of the bound, each kernel's device time, the scan's shared memory and
    both kernels' blocks per SM;
-   then the scan's backward kernel (``csrc/ssd_scan_bwd.cu``, its C Bᵀ
-   pre-pass and the backward) against autograd through the plain scan at
+   then the scan's backward (``csrc/ssd_scan_bwd.cu``, five CUDA kernels a
+   call: C Bᵀ, the chunk-local states, the two recurrences over the
+   chunks, the main pass per row and chunk, the sums over chunks and
+   rows) against autograd through the plain scan at
    the training shapes of ``mamba2_370m`` (the same as phase 4's), at a
    ragged 4,000 whose 96 pad rows (dt, x, B, C and dy 0) must get exactly
    0 gradients, and at jamba's group shape (``ds`` 16, 128 heads of 64 in
    one group): each of dx, ddt, dA, dB and dC within the forward's
    tolerance, or, where summation order alone breaks it, at most twice
    the float32 plain version's error to a float64 plain version (both
-   printed); times, the bound from the FLOPs and bytes, each kernel's
-   device time and blocks per SM;
+   printed); the states entering the chunks and dh leaving them against
+   the plain mirror of the stages; two calls equal bit for bit; times,
+   the bound from the FLOPs and bytes, each kernel's device time, shared
+   memory and blocks per SM;
 5. route-rate-drain kernel against its plain version, bit for bit (NaN
    where the plain version has NaN): random routes at the paper's 1D and
    2D shapes (almost no -1 in them), the engine's padded rows, and NaN
@@ -2582,8 +2586,8 @@ def phase_lm_families(dev):
 # ---------------------------------------------------------------------------
 
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
-# the backward's two CUDA kernels, as the profiler names them
-SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_kernel")
+# every CUDA kernel of the backward is named so (the profiler's keys)
+SSD_BWD_PREFIX = "ssd_bwd_"
 
 
 def ssd_bwd_check(got, args, dy, what):
@@ -2651,7 +2655,8 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
     import torch
 
     from repro_torch.kernels.ssd_scan import (
-        ssd_scan_bwd_cuda, ssd_scan_bwd_occupancy, ssd_scan_bwd_plain)
+        SSD_BWD_KERNELS, ssd_scan_bwd_cuda, ssd_scan_bwd_occupancy,
+        ssd_scan_bwd_plain, ssd_scan_bwd_stages)
 
     t0 = time.perf_counter()
     nc = S // Q
@@ -2662,8 +2667,25 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
 
     args = ssd_inputs(B * nh, B, nc, Q, hd, ds, 21, dev)
     dy = dy_like(args[0], 22)
-    got = ssd_scan_bwd_cuda(*args, dy)
+    inter = {}
+    got = ssd_scan_bwd_cuda(*args, dy, scratch=inter)
+    again = ssd_scan_bwd_cuda(*args, dy)
     torch.cuda.synchronize()
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    need(repeat_equal, "ssd_scan_bwd: two calls on the same inputs differ")
+    del again
+    # the intermediates against the plain mirror of the stages
+    mirror = ssd_scan_bwd_stages(*args, dy)
+    stages = {}
+    for k in ("h_in", "dh_out"):
+        want = mirror[k]
+        err = (inter[k] - want).abs()
+        ok = bool((err <= SSD_RTOL * want.abs()
+                   + SSD_ATOL_OF_MAX * float(want.abs().max())).all())
+        need(ok, f"ssd_scan_bwd {k}: max diff {float(err.max())} from the "
+             "plain mirror beyond the tolerance")
+        stages[k] = float(err.max())
+    del mirror, inter, err, want
     main = ssd_bwd_check(got, args, dy, "train shapes")
     del got
     kernel_ms = time_ms(lambda: ssd_scan_bwd_cuda(*args, dy), reps=5,
@@ -2672,9 +2694,11 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
                        warmup=1)
     bound_ms, bound_by, flops, moved = ssd_bwd_bound_ms(args[0], args[3])
     _, _, rows = device_profile(lambda: ssd_scan_bwd_cuda(*args, dy))
-    kernel_device_ms = {name: sum(r[0] for r in rows if name in r[2]) / 1e3
+    kernel_device_ms = {name: sum(r[0] for r in rows
+                                  if kernel_named(r[2], name)) / 1e3
                         for name in SSD_BWD_KERNELS}
     del args, dy
+    torch.cuda.empty_cache()
 
     # ragged: S = 4,000 padded to 32 chunks, the pad rows as the mixer
     # makes them
@@ -2722,6 +2746,7 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
               bytes=moved, tflop_per_s=flops / 1e9 / kernel_ms,
               share_of_bound=bound_ms / kernel_ms,
               kernel_device_ms=kernel_device_ms, jamba_kernel_ms=jamba_ms,
+              stages_max_abs_err=stages, repeat_bit_equal=repeat_equal,
               occupancy=ssd_scan_bwd_occupancy(Q, hd, ds),
               jamba_occupancy=ssd_scan_bwd_occupancy(Q, 64, 16)))
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
@@ -2988,8 +3013,7 @@ def phase_lm_train(dev, steps=5):
          f"lm_train accum=2: loss {m7['loss']}, ssd_scan_bwd "
          f"{ops.LAUNCHES['ssd_scan_bwd']} launches")
     tokens_per_step = dc.global_batch * dc.seq_len
-    bwd_us = sum(r[0] for r in prows if "ssd_bwd_kernel" in r[2]
-                 or "ssd_bwd_cb_kernel" in r[2])
+    bwd_us = sum(r[0] for r in prows if SSD_BWD_PREFIX in r[2])
     line = dict(phase="lm_train", arch=LM_ARCH, layers=cfg.n_layers,
                 d_model=cfg.d_model, params=sum(p.numel()
                                                for p in p6.parameters()),

@@ -3,52 +3,83 @@
 //
 // No TPU kernel corresponds: the JAX package differentiates its jnp
 // ssd_chunked (src/repro/models/mamba2.py:71) and never calls its Pallas
-// scan in training. This kernel is the gradient of csrc/ssd_scan.cu, and
-// computes what autograd through repro_torch.kernels.ssd_scan.
-// ssd_scan_plain gives. Per (batch * head) row, with the forward
+// scan in training. This is the gradient of csrc/ssd_scan.cu, and computes
+// what autograd through repro_torch.kernels.ssd_scan.ssd_scan_plain gives.
+// Per (batch * head) row, with the forward
 //   y = (C Bᵀ ∘ L)(x·dt) + (C h) ∘ exp(cs),  L[t,s] = exp(cs_t - cs_s), s <= t
 //   h ← h·exp(cs[-1]) + Bᵀ((x·dt) ∘ exp(cs[-1] - cs)),  cs = cumsum(dt·A)
-// and dy (dh of the final state: given, or 0), it takes the chunks in
-// reverse with dh the gradient of the state leaving the chunk:
+// and dy (dh of the final state: given, or 0), with h_in the state entering
+// chunk c and dh the gradient of the state leaving it:
 //   d(x·dt) = (C Bᵀ ∘ L)ᵀ dy + exp(cs[-1] - cs) ∘ (B dh)
 //   dC = (dM ∘ L) B + exp(cs) ∘ (dy h_inᵀ),   dM = dy (x·dt)ᵀ (causal)
 //   dB = (dM ∘ L)ᵀ C + exp(cs[-1] - cs) ∘ ((x·dt) dhᵀ)
-//   d cs from L, exp(cs) (exp(cs_t) times the row sum of C ∘ (dy h_inᵀ),
-//   from dC's own product: C h_in is never formed) and exp(cs[-1] - cs),
-//   then a reverse cumsum into d(dt·A), which gives ddt (with
-//   x · d(x·dt)) and dA
+//   d cs from L, exp(cs) (exp(cs_t) times the row sum of C ∘ (dy h_inᵀ):
+//   C h_in is never formed) and exp(cs[-1] - cs), then a reverse cumsum
+//   into d(dt·A), which gives ddt (with x · d(x·dt)) and dA
 //   dh_in = exp(cs[-1]) dh + Cᵀ(exp(cs) ∘ dy)
-// The states entering the chunks are recomputed first by a forward pass
-// over the chunks (with the forward kernel's arithmetic) into a scratch
-// tensor. dB and dC are written per row; the wrapper sums a group's rows.
+// Given h_in and dh, everything a chunk needs is local to it (cs is a
+// cumsum within the chunk). Only two elementwise recurrences over the
+// chunks are serial: the states forward and dh backward.
 //
 // Bound on an H100: operations. At the training shapes of mamba2_370m
 // (BH = 256 rows in 8 groups, nc = 32, Q = 128, hd = 64, ds = 128) the
 // products come to 138.4 GFLOP of fp32 FMAs (the causal halves of dM,
 // (dM ∘ L) B, (dM ∘ L)ᵀ C and (C Bᵀ ∘ L)ᵀ dy and of C Bᵀ once per group;
-// B dh, dy h_inᵀ, (x·dt) dhᵀ, Cᵀ(exp(cs) ∘ dy) and the state
-// recomputation, Q·ds·hd each), 2.07 ms at 67 TFLOP/s, against 0.88 GB
-// of inputs read once and outputs written once (x, dy, dx; dt, ddt; A,
-// dA; B, C, dB, dC a group: 0.26 ms at 3.35 TB/s).
-// chip_smoke's ssd_bwd_bound_ms works it out from the shapes.
+// B dh, dy h_inᵀ, (x·dt) dhᵀ, Cᵀ(exp(cs) ∘ dy) and the chunk-local states,
+// Q·ds·hd each), 2.07 ms at 67 TFLOP/s, against 0.88 GB of inputs read
+// once and outputs written once (x, dy, dx; dt, ddt; A, dA; B, C, dB, dC
+// a group: 0.26 ms at 3.35 TB/s). chip_smoke's ssd_bwd_bound_ms works it
+// out from the shapes.
 //
-// Design: a simple kernel that is right. A pre-pass, one block per group
-// and chunk, writes C Bᵀ of the chunk in both layouts, [t][s] and [s][t]
-// (zero above the diagonal), so that the scan's reads of rows and of
-// columns are both coalesced. The scan, one block of 512 threads per row
-// (one block an SM at the training shapes: 187,904 bytes of shared
-// memory), keeps in shared memory (padded strides against bank
-// conflicts) dh, h_in, x·dt, one Q x Q matrix (dM, then dM ∘ L; then a
-// Q x hd one reused for B dh and d(x·dt)), the chunk's vectors and the
-// dC pass's partial row sums of C ∘ (dy h_inᵀ); B, C, dy and x are read from device memory (B and C of a
-// group from L2). Every product is a pass of 4 x 4 register micro-tiles
-// (a thread loads 4 + 4 operands a step of k for 16 FMAs; the first
-// design, one output a thread, took 47.6 ms a call at these shapes on an
-// H100 80GB HBM3 at 700 W), each output one fmaf
-// chain over k in order; sums over a row go through a fixed warp
-// butterfly; one thread takes the serial cumsums. No atomics: two calls
-// on the same inputs give the same bits. Tensor cores, TMA and cp.async
-// staging are later work.
+// Design: five kernels a call, every one of 256 threads; the grid of the
+// two that do the products is one block per (row, chunk), 8,192 blocks at
+// the training shapes (the previous design: one block of 512 threads per
+// row walking all 32 chunks, one block an SM, 8.7x this bound).
+// 1. ssd_bwd_cb_kernel, one block per (group, chunk): C Bᵀ of the chunk,
+//    [t][s], 0 above the diagonal, into scratch.
+// 2. ssd_bwd_local_kernel, one block per (row, chunk): cs = cumsum(dt·A)
+//    in the forward's order (one thread, as the forward takes it; it
+//    writes cs and exp(cs[-1]) to scratch for the later kernels), then the
+//    chunk-local state Bᵀ((x·dt) ∘ exp(cs[-1] - cs)) with the forward's
+//    arithmetic (the states come out bit for bit the forward's), and the
+//    chunk-local gradient Cᵀ(exp(cs) ∘ dy); both (hd, ds), into the
+//    slots of the states and of dh that the next kernel completes.
+// 3. ssd_bwd_carry_kernel, one thread per (row, state element): the two
+//    recurrences, h_in[c+1] = h_in[c]·exp(cs_c[-1]) + local[c] (rounded
+//    as the forward rounds it) and dh[c-1] = exp(cs_c[-1])·dh[c] +
+//    dlocal[c] from dh_final or 0, in place.
+// 4. ssd_bwd_main_kernel, one block per (row, chunk), two blocks an SM
+//    (107,136 bytes of shared memory, registers capped at 128): L formed
+//    once in shared memory (one expf per entry), then the chunk's products
+//    as block-wide passes over its operands: (C Bᵀ ∘ L)ᵀ dy; dM, turned
+//    in place into dM ∘ L with the row and column sums of dM ∘ C Bᵀ ∘ L;
+//    dB; the matrix transposed in place; dC; B dh with d(x·dt), dx and
+//    the d cs terms; then the reverse cumsum as a warp scan into ddt and
+//    the chunk's part of dA. dB and dC are written per row.
+// 5. ssd_bwd_reduce_kernel: dA summed over the chunks, dB and dC over a
+//    group's rows, each in a fixed order.
+// Every product is a pass of register micro-tiles (8 x 4 or 16 x 4 outputs
+// a thread, column tiles fastest across a warp, so a warp's row operand is
+// one broadcast and its column operand one float4 a lane): each step of k
+// loads R/4 + 1 float4s from shared memory for 4R FMAs. Operands in device
+// memory are staged 16 rows of k at a time by cp.async into two slots, the
+// next slab landing while the current one is used: 16-byte copies of
+// k-major rows, 4-byte ones where the operand is stored with k fastest
+// (the copy transposes it); a slab that needs scaling (x·dt·exp(cs[-1] -
+// cs), exp(cs) ∘ dy, C Bᵀ ∘ L) is scaled in place by the threads that
+// copied it once their copies have landed, so no expf is inside a k-loop.
+// Slab rows are padded to 4 floats past a multiple of 16 (4 mod 32) so
+// that the transposing copies meet at most two to a bank. Sums over a
+// micro-tile's row or column go to shared memory per tile and are added
+// in tile order.
+//
+// Arithmetic: fp32 FMAs on the CUDA cores (no tensor cores, no TF32, no
+// fast-math exp), every output of a product one fmaf chain in increasing
+// k; no atomics, so two calls on the same inputs give the same bits. The
+// plain version sums in another order, so the two agree to a tolerance
+// (stated where they are compared). The main path's shapes (Q 128, hd 64,
+// ds 128) get instantiations with them fixed at compile time; other shapes
+// take the generic ones.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,49 +87,115 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kR = 4;  // output rows of a thread's micro-tile
-constexpr int kC = 4;  // output columns of a thread's micro-tile
+constexpr int kTileK = 16;  // k rows of a staged slab
+constexpr int kPartials = kThreads * 16 + kThreads * 4;  // per-tile sums
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int round_up(int a, int b) { return cdiv(a, b) * b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
-// The scan block's shared memory, in floats: dh and h_in (ds x (hd + 1)),
-// x·dt (Q x (hd + 1)), the matrix S (Q x (Q + 1), or Q x (hd + 1) if
-// larger), the chunk's vectors, the block's partial sums and the dC
-// pass's partial row sums (one a row and column tile).
-struct BwdSmem {
-  int hs, qs;  // row strides: hd + 1, Q + 1
-  int tc;      // column tiles of a Q x ds output
-  int dh, hin, xdt, S, dts, cs, ecs, dout, dcs, gd, dtx, red, rp, total;
-  __host__ __device__ BwdSmem(int Q, int hd, int ds) {
-    hs = hd + 1;
-    qs = Q + 1;
-    dh = 0;
-    hin = dh + ds * hs;
-    xdt = hin + ds * hs;
-    S = xdt + Q * hs;
-    const int s_size = Q * qs > Q * hs ? Q * qs : Q * hs;
-    dts = S + s_size;
-    cs = dts + Q;
-    ecs = cs + Q;
-    dout = ecs + Q;
-    dcs = dout + Q;
-    gd = dcs + Q;
-    dtx = gd + Q;
-    red = dtx + Q;
-    rp = red + kThreads;
-    tc = cdiv(ds, kC);
-    total = rp + cdiv(Q, kR) * kR * tc;
+// Row stride of a staged slab, or of the resident Q x Q matrix, holding m
+// columns: room for 16-row micro-tiles past the edge, 4 mod 32 floats.
+__host__ __device__ inline int slab_width(int m) { return round_up(m, 16) + 4; }
+
+// The two slots of staged slabs, or the per-tile sums of an epilogue,
+// whichever is larger (they are never in use at once).
+__host__ __device__ inline int ring_floats(int Q, int hd, int ds) {
+  const int w = slab_width(imax(Q, imax(hd, ds)));
+  return imax(2 * kTileK * 2 * w, kPartials);
+}
+
+// The main kernel's shared memory, in floats: the Q x Q matrix X (L, then
+// dM ∘ L, then its transpose), the ring, and the chunk's vectors. Every
+// array starts on a 16-byte boundary.
+struct MainSmem {
+  int xw, qp;
+  int X, ring, dts, cs, ecs, dout, drow, dcol, dce, gd, dtx, dcs, rev, red,
+      total;
+  __host__ __device__ MainSmem(int Q, int hd, int ds) {
+    xw = slab_width(Q);
+    qp = round_up(Q, 4);
+    X = 0;
+    ring = X + Q * xw;
+    dts = ring + ring_floats(Q, hd, ds);
+    cs = dts + qp;
+    ecs = cs + qp;
+    dout = ecs + qp;
+    drow = dout + qp;
+    dcol = drow + qp;
+    dce = dcol + qp;
+    gd = dce + qp;
+    dtx = gd + qp;
+    dcs = dtx + qp;
+    rev = dcs + qp;
+    red = rev + qp;
+    total = red + 32;
   }
 };
 
-size_t bwd_smem_bytes(int Q, int hd, int ds) {
-  return sizeof(float) * (size_t)BwdSmem(Q, hd, ds).total;
+// The local kernel's: the ring and the chunk's vectors.
+struct LocalSmem {
+  int qp, ring, dts, cs, ecs, dout, total;
+  __host__ __device__ LocalSmem(int Q, int hd, int ds) {
+    qp = round_up(Q, 4);
+    ring = 0;
+    dts = ring_floats(Q, hd, ds);
+    cs = dts + qp;
+    ecs = cs + qp;
+    dout = ecs + qp;
+    total = dout + qp;
+  }
+};
+
+size_t main_smem_bytes(int Q, int hd, int ds) {
+  return sizeof(float) * (size_t)MainSmem(Q, hd, ds).total;
+}
+size_t local_smem_bytes(int Q, int hd, int ds) {
+  return sizeof(float) * (size_t)LocalSmem(Q, hd, ds).total;
+}
+size_t cb_smem_bytes(int Q) {
+  return sizeof(float) * (size_t)(2 * kTileK * 2 * slab_width(Q));
 }
 
-size_t cb_smem_bytes(int Q, int ds) {
-  return sizeof(float) * 2 * (size_t)Q * (ds + 1);
+// Walks e = threadIdx.x, threadIdx.x + kThreads, ... over a row-major range
+// of ``cols`` columns as (row r, column c), without a division a step.
+struct Walk {
+  int r, c, cols, dr, dc;
+  __device__ explicit Walk(int cols_)
+      : r(threadIdx.x / cols_), c(threadIdx.x % cols_), cols(cols_),
+        dr(kThreads / cols_), dc(kThreads % cols_) {}
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
+
+// One float (cp_async) or four (cp_async4, both addresses on 16-byte
+// boundaries) from device memory into shared memory, asynchronously: the
+// copy is visible to the thread after cp_async_wait and to the block after
+// a barrier that follows it.
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The sum of v over the warp's 32 lanes, in the same order in every lane.
@@ -108,478 +205,830 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// C Bᵀ of one chunk of one group, one block per (group, chunk):
-// cb[t][s] = sum_n C[t][n] B[s][n] for s <= t (0 above the diagonal), one
-// fmaf chain in increasing n as the forward's pre-pass takes it, written
-// as cb_ts[t][s] and cb_st[s][t].
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
-                  int Q, int ds, float* __restrict__ cb_ts,
-                  float* __restrict__ cb_st) {
-  extern __shared__ __align__(16) float smem[];
-  const int ls = ds + 1;
-  float* c_s = smem;
-  float* b_s = smem + Q * ls;
-  const int64_t gc = blockIdx.x;
-  const float* Bc = Bm + gc * Q * ds;
-  const float* Cc = Cm + gc * Q * ds;
-  for (int e = threadIdx.x; e < Q * ds; e += kThreads) {
-    const int r = e / ds, n = e % ds;
-    c_s[r * ls + n] = Cc[e];
-    b_s[r * ls + n] = Bc[e];
-  }
+// The sum of every thread's v, in a fixed order, to every thread; red
+// holds kWarps floats of shared memory. Two barriers.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  float* ts = cb_ts + gc * Q * Q;
-  float* st = cb_st + gc * Q * Q;
-  for (int e = threadIdx.x; e < Q * Q; e += kThreads) {
-    const int t = e / Q, s = e % Q;
-    float acc = 0.0f;
-    if (s <= t)
-      for (int n = 0; n < ds; ++n)
-        acc = fmaf(c_s[t * ls + n], b_s[s * ls + n], acc);
-    ts[e] = acc;
-    st[(int64_t)s * Q + t] = acc;
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// An operand of a block product: element (k, i), k < K, i < n. In device
+// memory at p[k * ld + i] (k-major) or p[i * ld + k] (k fastest), staged a
+// slab at a time; or resident in shared memory, k-major, at res[k * ld +
+// i] (p null). A staged k-major slab may be scaled once it has landed:
+// v·f1[k] (then ·f2[k]), or v·fm[k * fml + i].
+struct Operand {
+  const float* p;
+  const float* res;
+  int ld;
+  bool kmajor;
+  const float* f1;
+  const float* f2;
+  const float* fm;
+  int fml;
+};
+
+__device__ __forceinline__ Operand rows_of(const float* p, int ld) {
+  Operand o{};
+  o.p = p;
+  o.ld = ld;
+  o.kmajor = true;
+  return o;
+}
+
+__device__ __forceinline__ Operand cols_of(const float* p, int ld) {
+  Operand o{};
+  o.p = p;
+  o.ld = ld;
+  return o;
+}
+
+__device__ __forceinline__ Operand resident(const float* s, int ld) {
+  Operand o{};
+  o.res = s;
+  o.ld = ld;
+  o.kmajor = true;
+  return o;
+}
+
+// Whether a k-major operand's rows of n floats go by 16-byte copies.
+__device__ __forceinline__ bool vec_rows(const Operand& o, int n) {
+  return n % 4 == 0 && o.ld % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(o.p) % 16 == 0;
+}
+
+// slab[k][i] = element (k0 + k, i) of o for k < kn, i < n, as
+// asynchronous copies.
+__device__ __forceinline__ void stage(float* slab, int w, const Operand& o,
+                                      int n, int k0, int kn) {
+  if (!o.kmajor) {  // a run of kn floats of a row a kn threads
+    for (Walk q(kn); q.r < n; q.next())
+      cp_async(slab + q.c * w + q.r, o.p + (int64_t)q.r * o.ld + k0 + q.c);
+  } else if (vec_rows(o, n)) {
+    for (Walk q(n / 4); q.r < kn; q.next())
+      cp_async4(slab + q.r * w + 4 * q.c,
+                o.p + (int64_t)(k0 + q.r) * o.ld + 4 * q.c);
+  } else {
+    for (Walk q(n); q.r < kn; q.next())
+      cp_async(slab + q.r * w + q.c, o.p + (int64_t)(k0 + q.r) * o.ld + q.c);
   }
 }
 
-// A thread's kR x kC micro-tile of an output: acc[i][j] += A(i, k) B(k, j)
-// for k = k0 .. k1 - 1 in order, one fmaf chain per output. A step of k
-// loads kR values of A and kC of B for kR * kC FMAs.
-template <typename FA, typename FB>
-__device__ __forceinline__ void tile_mac(int k0, int k1, FA&& A, FB&& B,
-                                         float (&acc)[kR][kC]) {
+__device__ __forceinline__ float scaled(const Operand& o, int k, int i,
+                                        float v) {
+  if (o.fm) return __fmul_rn(v, o.fm[k * o.fml + i]);
+  v = __fmul_rn(v, o.f1[k]);
+  return o.f2 ? __fmul_rn(v, o.f2[k]) : v;
+}
+
+// Scales the entries of a staged k-major slab that this thread copied
+// (the walk of ``stage``), after cp_async_wait.
+__device__ __forceinline__ void finish(float* slab, int w, const Operand& o,
+                                       int n, int k0, int kn) {
+  if (!o.f1 && !o.fm) return;
+  if (vec_rows(o, n)) {
+    for (Walk q(n / 4); q.r < kn; q.next()) {
+      float4* p = reinterpret_cast<float4*>(slab + q.r * w + 4 * q.c);
+      const int k = k0 + q.r, i = 4 * q.c;
+      float4 v = *p;
+      v.x = scaled(o, k, i, v.x);
+      v.y = scaled(o, k, i + 1, v.y);
+      v.z = scaled(o, k, i + 2, v.z);
+      v.w = scaled(o, k, i + 3, v.w);
+      *p = v;
+    }
+  } else {
+    for (Walk q(n); q.r < kn; q.next()) {
+      float* p = slab + q.r * w + q.c;
+      *p = scaled(o, k0 + q.r, q.c, *p);
+    }
+  }
+}
+
+// acc[r][c] = fmaf(a[k * lda + r], b[k * ldb + c], acc[r][c]) for k = 0 ..
+// kn - 1 in order: one serial FMA chain per output. a and b lie on 16-byte
+// boundaries and lda, ldb are multiples of 4, so a step of k is R/4 + C/4
+// float4 loads from shared memory for R * C FMAs.
+template <int R, int C>
+__device__ __forceinline__ void micro_mma(const float* a, int lda,
+                                          const float* b, int ldb, int kn,
+                                          float (&acc)[R][C]) {
 #pragma unroll 2
-  for (int k = k0; k < k1; ++k) {
-    float av[kR], bv[kC];
+  for (int k = 0; k < kn; ++k) {
+    float av[R], bv[C];
 #pragma unroll
-    for (int i = 0; i < kR; ++i) av[i] = A(i, k);
+    for (int i = 0; i < R; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(a + k * lda + i);
+      av[i] = v.x; av[i + 1] = v.y; av[i + 2] = v.z; av[i + 3] = v.w;
+    }
 #pragma unroll
-    for (int j = 0; j < kC; ++j) bv[j] = B(k, j);
+    for (int i = 0; i < C; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(b + k * ldb + i);
+      bv[i] = v.x; bv[i + 1] = v.y; bv[i + 2] = v.z; bv[i + 3] = v.w;
+    }
 #pragma unroll
-    for (int i = 0; i < kR; ++i)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < kC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// The micro-tiles of a rows x cols output, the column tile fastest (so a
-// warp's lanes take neighbouring columns), spread over the block: calls
-// f(r0, c0, r[kR], c[kC]) for each of this thread's tiles, with r and c
-// the tile's row and column indices clamped into the output (for loads;
-// an output is stored only where r0 + i < rows and c0 + j < cols).
-template <typename F>
-__device__ __forceinline__ void for_tiles(int rows, int cols, F&& f) {
-  const int tc = cdiv(cols, kC);
-  const int n = cdiv(rows, kR) * tc;
-  for (int m = threadIdx.x; m < n; m += kThreads) {
-    const int r0 = (m / tc) * kR, c0 = (m % tc) * kC;
-    int r[kR], c[kC];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) r[i] = min(r0 + i, rows - 1);
-#pragma unroll
-    for (int j = 0; j < kC; ++j) c[j] = min(c0 + j, cols - 1);
-    f(r0, c0, r, c);
+      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
   }
 }
 
 template <int R, int C>
 __device__ __forceinline__ void zero(float (&acc)[R][C]) {
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < C; ++j) acc[i][j] = 0.0f;
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
 }
 
-// The scan's backward, one block per row; see the note at the top.
+// Which k a micro-tile at rows r0.., columns c0.. sums over: all; k >= r0
+// (an operand zero for k below the row); k < r0 + R (zero above it); or
+// none when the tile lies wholly above the diagonal (a causal output).
+enum KRange { kAll, kFromRow, kToRow, kLower };
+
+// out[m][n] = sum over k < K of A(k, m) B(k, n) for m < M, n < N, as R x C
+// micro-tiles, one a thread in passes of kThreads tiles (the column tile
+// fastest), each output one fmaf chain in increasing k over the tile's
+// k range. The staged operands stream through the ring's two slots, a slab
+// of kTileK rows of k landing while the previous one is used. Then
+// epi(p, r0, c0, acc) for each live tile (p: its index in the pass), a
+// barrier, post(m0, tc) by every thread (m0: the pass's first tile, tc:
+// tiles a row), a barrier. Every thread must call it.
+template <int R, int C, typename Epi, typename Post>
+__device__ __forceinline__ void block_product(int M, int N, int K,
+                                              const Operand& A,
+                                              const Operand& B, int mode,
+                                              float* ring, Epi&& epi,
+                                              Post&& post) {
+  const int wa = slab_width(M), wb = slab_width(N);
+  const int slot = kTileK * (wa + wb);
+  const int tc = cdiv(N, C), tiles = cdiv(M, R) * tc;
+  const int nk = cdiv(K, kTileK);
+  const auto slab = [&](int i) { return ring + (i & 1) * slot; };
+  const auto stage_slab = [&](int i) {
+    const int k0 = i * kTileK, kn = min(kTileK, K - k0);
+    if (A.p) stage(slab(i), wa, A, M, k0, kn);
+    if (B.p) stage(slab(i) + kTileK * wa, wb, B, N, k0, kn);
+  };
+  const auto finish_slab = [&](int i) {
+    const int k0 = i * kTileK, kn = min(kTileK, K - k0);
+    if (A.p) finish(slab(i), wa, A, M, k0, kn);
+    if (B.p) finish(slab(i) + kTileK * wa, wb, B, N, k0, kn);
+  };
+  for (int m0 = 0; m0 < tiles; m0 += kThreads) {
+    const int m = m0 + threadIdx.x;
+    const bool live = m < tiles;
+    const int r0 = (m / tc) * R, c0 = (m % tc) * C;
+    int lo = 0, hi = K;
+    if (mode == kFromRow) lo = r0;
+    if (mode == kToRow) hi = min(K, r0 + R);
+    if (mode == kLower && c0 > r0 + R - 1) hi = 0;
+    float acc[R][C];
+    zero(acc);
+    if (nk > 0) {
+      stage_slab(0);
+      cp_async_wait();
+      finish_slab(0);
+    }
+    __syncthreads();
+    for (int i = 0; i < nk; ++i) {
+      if (i + 1 < nk) stage_slab(i + 1);
+      const int k0 = i * kTileK, kn = min(kTileK, K - k0);
+      const int ka = max(k0, lo), kb = min(k0 + kn, hi);
+      if (live && ka < kb) {
+        const float* a = A.p ? slab(i) + (ka - k0) * wa + r0
+                             : A.res + ka * A.ld + r0;
+        const float* b = B.p ? slab(i) + kTileK * wa + (ka - k0) * wb + c0
+                             : B.res + ka * B.ld + c0;
+        micro_mma<R, C>(a, A.p ? wa : A.ld, b, B.p ? wb : B.ld, kb - ka, acc);
+      }
+      cp_async_wait();
+      if (i + 1 < nk) finish_slab(i + 1);
+      __syncthreads();
+    }
+    if (live) epi(m - m0, r0, c0, acc);
+    __syncthreads();
+    post(m0, tc);
+    __syncthreads();
+  }
+}
+
+// Sums, for each q < n, the per-tile sums part[p * per + q % per] of the
+// pass's tiles that hold q as a row (rows: tiles (q / per, 0 .. tc - 1)) or
+// as a column (tiles (0 .., q / per)), in tile order, into out[q].
+__device__ __forceinline__ void add_row_sums(const float* part, int per,
+                                             int n, int m0, int tc,
+                                             float* out) {
+  for (int q = threadIdx.x; q < n; q += kThreads) {
+    float v = 0.0f;
+    for (int ct = 0; ct < tc; ++ct) {
+      const int p = (q / per) * tc + ct - m0;
+      if (p >= 0 && p < kThreads) v += part[p * per + q % per];
+    }
+    out[q] += v;
+  }
+}
+
+__device__ __forceinline__ void add_col_sums(const float* part, int per,
+                                             int n, int rows, int m0,
+                                             int tc, float* out) {
+  for (int q = threadIdx.x; q < n; q += kThreads) {
+    float v = 0.0f;
+    for (int rt = 0; rt < rows; ++rt) {
+      const int p = rt * tc + q / per - m0;
+      if (p >= 0 && p < kThreads) v += part[p * per + q % per];
+    }
+    out[q] += v;
+  }
+}
+
+// A post step that does nothing.
+struct NoPost {
+  __device__ void operator()(int, int) const {}
+};
+
+// C Bᵀ of one chunk of one group, one block per (group, chunk): cb[t][s] =
+// sum_n C[t][n] B[s][n] for s <= t (one fmaf chain in increasing n, as the
+// forward's pre-pass takes it), 0 above the diagonal.
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const float* __restrict__ Bm,
-               const float* __restrict__ Cm, const float* __restrict__ dy,
-               const float* __restrict__ dh_final,
-               const float* __restrict__ cb_ts,
-               const float* __restrict__ cb_st, float* __restrict__ hs,
-               int nc, int Q, int hd, int ds, int heads_per_group,
-               float* __restrict__ dx, float* __restrict__ ddt,
-               float* __restrict__ dA, float* __restrict__ dB,
-               float* __restrict__ dC) {
+ssd_bwd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
+                  int Q, int ds, float* __restrict__ cb) {
   extern __shared__ __align__(16) float smem[];
-  const BwdSmem L(Q, hd, ds);
-  float* dh = smem + L.dh;
-  float* hin = smem + L.hin;
-  float* xdt = smem + L.xdt;
-  float* S = smem + L.S;
+  const int64_t gc = blockIdx.x;
+  const float* Bc = Bm + gc * Q * ds;
+  const float* Cc = Cm + gc * Q * ds;
+  float* out = cb + gc * Q * Q;
+  block_product<16, 4>(
+      Q, Q, ds, cols_of(Cc, ds), cols_of(Bc, ds), kLower, smem,
+      [&](int, int r0, int c0, float (&acc)[16][4]) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int t = r0 + i, s = c0 + j;
+            if (t < Q && s < Q) out[t * Q + s] = s <= t ? acc[i][j] : 0.0f;
+          }
+      },
+      NoPost{});
+}
+
+// Per (row, chunk): cs into scratch (and exp(cs[-1])), the chunk-local
+// state into the slot of the state entering chunk c + 1, the chunk-local
+// gradient into the slot of dh leaving chunk c - 1; both [d][n]. A nonzero
+// kQ, kHd or kDs fixes Q, hd or ds at compile time.
+template <int kQ, int kHd, int kDs>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_local_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A,
+                     const float* __restrict__ Bm,
+                     const float* __restrict__ Cm,
+                     const float* __restrict__ dy, int nc, int Q_, int hd_,
+                     int ds_, int heads_per_group, float* __restrict__ cs_out,
+                     float* __restrict__ seg_out, float* __restrict__ hs,
+                     float* __restrict__ dhs) {
+  extern __shared__ __align__(16) float smem[];
+  const int Q = kQ ? kQ : Q_, hd = kHd ? kHd : hd_, ds = kDs ? kDs : ds_;
+  const LocalSmem L(Q, hd, ds);
+  const int64_t row = blockIdx.x;  // bh * nc + c
+  const int bh = (int)(row / nc), c = (int)(row % nc);
+  const int64_t grow = (int64_t)(bh / heads_per_group) * nc + c;
+  const int64_t hds = (int64_t)hd * ds;
+  float* ring = smem + L.ring;
   float* dts = smem + L.dts;
   float* cs = smem + L.cs;
   float* ecs = smem + L.ecs;
   float* dout = smem + L.dout;
-  float* dcs = smem + L.dcs;
-  float* gd = smem + L.gd;
-  float* dtx = smem + L.dtx;
-  float* red = smem + L.red;
-  float* rp = smem + L.rp;
-  const int HS = L.hs, QS = L.qs;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.x;
-  const int g = bh / heads_per_group;
   const float a = A[bh];
-  const int64_t QHD = (int64_t)Q * hd;
-
-  // dt, cs = cumsum(dt·A) (serially, in the forward's order), x·dt,
-  // exp(cs) and exp(cs[-1] - cs) of chunk c; ends with a barrier.
-  auto prologue = [&](int c) {
-    const int64_t row = (int64_t)bh * nc + c;
-    const float* xc = x + row * QHD;
-    for (int q = tid; q < Q; q += kThreads) dts[q] = dt[row * Q + q];
-    __syncthreads();
-    if (tid == 0) {
-      float run = 0.0f;
-      for (int q = 0; q < Q; ++q) {
-        run = __fadd_rn(run, __fmul_rn(dts[q], a));
-        cs[q] = run;
-      }
+  for (int q = threadIdx.x; q < Q; q += kThreads) dts[q] = dt[row * Q + q];
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the forward's order
+    float run = 0.0f;
+    for (int q = 0; q < Q; ++q) {
+      run = __fadd_rn(run, __fmul_rn(dts[q], a));
+      cs[q] = run;
+      cs_out[row * Q + q] = run;
     }
-    for (int e = tid; e < Q * hd; e += kThreads)
-      xdt[(e / hd) * HS + e % hd] = __fmul_rn(xc[e], dts[e / hd]);
-    __syncthreads();
-    const float last = cs[Q - 1];
-    for (int q = tid; q < Q; q += kThreads) {
-      ecs[q] = expf(cs[q]);
-      dout[q] = expf(last - cs[q]);
-    }
-    __syncthreads();
+    seg_out[row] = expf(run);
+  }
+  __syncthreads();
+  const float last = cs[Q - 1];
+  for (int q = threadIdx.x; q < Q; q += kThreads) {
+    ecs[q] = expf(cs[q]);
+    dout[q] = expf(last - cs[q]);
+  }
+  __syncthreads();
+  const float* Bc = Bm + grow * Q * ds;
+  const float* Cc = Cm + grow * Q * ds;
+  const auto store = [&](float* out) {
+    return [=](int, int r0, int c0, float (&acc)[8][4]) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (r0 + i < hd && c0 + j < ds)
+            out[(r0 + i) * ds + c0 + j] = acc[i][j];
+    };
   };
-
-  // the states entering the chunks, into hs (dh holds the running state):
-  // h ← h·exp(cs[-1]) + Bᵀ((x·dt) ∘ exp(cs[-1] - cs)), the forward's
-  // arithmetic
-  for (int e = tid; e < ds * hd; e += kThreads) dh[(e / hd) * HS + e % hd] = 0.0f;
-  for (int c = 0; c < nc; ++c) {
-    prologue(c);
-    for (int e = tid; e < Q * hd; e += kThreads) {
-      float* p = xdt + (e / hd) * HS + e % hd;
-      *p = __fmul_rn(*p, dout[e / hd]);
-    }
-    __syncthreads();
-    const float* Bc = Bm + ((int64_t)g * nc + c) * Q * ds;
-    const float seg = expf(cs[Q - 1]);
-    float* hc = hs + ((int64_t)bh * nc + c) * ds * hd;
-    for_tiles(ds, hd, [&](int r0, int c0, const int (&n)[kR],
-                          const int (&d)[kC]) {
-      float acc[kR][kC];
-      zero(acc);
-      tile_mac(0, Q, [&](int i, int s) { return Bc[(int64_t)s * ds + n[i]]; },
-               [&](int s, int j) { return xdt[s * HS + d[j]]; }, acc);
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j)
-          if (r0 + i < ds && c0 + j < hd) {
-            float* p = dh + n[i] * HS + d[j];
-            const float v = *p;
-            hc[n[i] * hd + d[j]] = v;
-            *p = __fadd_rn(__fmul_rn(v, seg), acc[i][j]);
-          }
-    });
-    __syncthreads();
+  if (c + 1 < nc) {  // Bᵀ((x·dt) ∘ exp(cs[-1] - cs)), as [d][n]
+    Operand xo = rows_of(x + row * Q * hd, hd);
+    xo.f1 = dts;
+    xo.f2 = dout;
+    block_product<8, 4>(hd, ds, Q, xo, rows_of(Bc, ds), kAll, ring,
+                        store(hs + (row + 1) * hds), NoPost{});
   }
-
-  // the chunks in reverse, dh the gradient of the state leaving chunk c
-  for (int e = tid; e < ds * hd; e += kThreads)
-    dh[(e / hd) * HS + e % hd] =
-        dh_final ? dh_final[(int64_t)bh * ds * hd + e] : 0.0f;
-  float dA_acc = 0.0f;  // thread 0's
-  for (int c = nc - 1; c >= 0; --c) {
-    const int64_t row = (int64_t)bh * nc + c;
-    const int64_t grow = (int64_t)g * nc + c;
-    const float* xc = x + row * QHD;
-    const float* dyc = dy + row * QHD;
-    const float* Bc = Bm + grow * Q * ds;
-    const float* Cc = Cm + grow * Q * ds;
-    const float* cts = cb_ts + grow * Q * Q;
-    const float* cst = cb_st + grow * Q * Q;
-    const float* hc = hs + row * ds * hd;
-    for (int e = tid; e < ds * hd; e += kThreads)
-      hin[(e / hd) * HS + e % hd] = hc[e];
-    prologue(c);
-    const float seg = expf(cs[Q - 1]);
-
-    // S = dM: dM[t][s] = dy_t · (x·dt)_s for s <= t (0 above)
-    for_tiles(Q, Q, [&](int r0, int c0, const int (&t)[kR],
-                        const int (&sv)[kC]) {
-      float acc[kR][kC];
-      zero(acc);
-      if (c0 <= r0 + kR - 1)
-        tile_mac(0, hd, [&](int i, int d) { return dyc[(int64_t)t[i] * hd + d]; },
-                 [&](int d, int j) { return xdt[sv[j] * HS + d]; }, acc);
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j)
-          if (r0 + i < Q && c0 + j < Q)
-            S[(r0 + i) * QS + c0 + j] = c0 + j <= r0 + i ? acc[i][j] : 0.0f;
-    });
-    __syncthreads();
-    // through L: P = dM ∘ C Bᵀ ∘ L adds to d cs_t along its row and
-    // takes from d cs_s along its column
-    for (int t = warp; t < Q; t += kWarps) {
-      float row_sum = 0.0f, col_sum = 0.0f;
-      for (int s = lane; s <= t; s += 32)
-        row_sum += S[t * QS + s] * cts[(int64_t)t * Q + s] *
-                   expf(cs[t] - cs[s]);
-      for (int u = t + lane; u < Q; u += 32)
-        col_sum += S[u * QS + t] * cst[(int64_t)t * Q + u] *
-                   expf(cs[u] - cs[t]);
-      row_sum = warp_sum(row_sum);
-      col_sum = warp_sum(col_sum);
-      if (lane == 0) dcs[t] = row_sum - col_sum;
-    }
-    __syncthreads();
-    // S = dM ∘ L, the gradient of C Bᵀ
-    for (int e = tid; e < Q * Q; e += kThreads) {
-      const int t = e / Q, s = e % Q;
-      if (s <= t) S[t * QS + s] *= expf(cs[t] - cs[s]);
-    }
-    __syncthreads();
-    // dC = (dM ∘ L) B + exp(cs) ∘ (dy h_inᵀ), per row; rp takes each
-    // tile's row sums of C ∘ (dy h_inᵀ), the exp(cs) term of d cs
-    float* dCc = dC + row * Q * ds;
-    for_tiles(Q, ds, [&](int r0, int c0, const int (&t)[kR],
-                         const int (&n)[kC]) {
-      float acc[kR][kC], acc2[kR][kC];
-      zero(acc);
-      zero(acc2);
-      tile_mac(0, min(Q, r0 + kR),
-               [&](int i, int s) { return S[t[i] * QS + s]; },
-               [&](int s, int j) { return Bc[(int64_t)s * ds + n[j]]; }, acc);
-      tile_mac(0, hd, [&](int i, int d) { return dyc[(int64_t)t[i] * hd + d]; },
-               [&](int d, int j) { return hin[n[j] * HS + d]; }, acc2);
-#pragma unroll
-      for (int i = 0; i < kR; ++i) {
-        float part = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kC; ++j)
-          if (r0 + i < Q && c0 + j < ds) {
-            dCc[(int64_t)t[i] * ds + n[j]] = acc[i][j] + ecs[t[i]] * acc2[i][j];
-            part = fmaf(Cc[(int64_t)t[i] * ds + n[j]], acc2[i][j], part);
-          }
-        rp[(r0 + i) * L.tc + c0 / kC] = part;
-      }
-    });
-    // dB = (dM ∘ L)ᵀ C + exp(cs[-1] - cs) ∘ ((x·dt) dhᵀ), per row
-    float* dBc = dB + row * Q * ds;
-    for_tiles(Q, ds, [&](int r0, int c0, const int (&sv)[kR],
-                         const int (&n)[kC]) {
-      float acc[kR][kC], acc2[kR][kC];
-      zero(acc);
-      zero(acc2);
-      tile_mac(r0, Q, [&](int i, int t) { return S[t * QS + sv[i]]; },
-               [&](int t, int j) { return Cc[(int64_t)t * ds + n[j]]; }, acc);
-      tile_mac(0, hd, [&](int i, int d) { return xdt[sv[i] * HS + d]; },
-               [&](int d, int j) { return dh[n[j] * HS + d]; }, acc2);
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j)
-          if (r0 + i < Q && c0 + j < ds)
-            dBc[(int64_t)sv[i] * ds + n[j]] =
-                acc[i][j] + dout[sv[i]] * acc2[i][j];
-    });
-    __syncthreads();
-    // S = du = B dh
-    for_tiles(Q, hd, [&](int r0, int c0, const int (&sv)[kR],
-                         const int (&d)[kC]) {
-      float acc[kR][kC];
-      zero(acc);
-      tile_mac(0, ds, [&](int i, int n) { return Bc[(int64_t)sv[i] * ds + n]; },
-               [&](int n, int j) { return dh[n * HS + d[j]]; }, acc);
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j)
-          if (r0 + i < Q && c0 + j < hd) S[sv[i] * HS + d[j]] = acc[i][j];
-    });
-    __syncthreads();
-    // through exp(cs[-1] - cs): gd = dout ∘ (du · x·dt) adds to d cs[-1]
-    // and takes from d cs_s
-    for (int s = warp; s < Q; s += kWarps) {
-      float v = 0.0f;
-      for (int d = lane; d < hd; d += 32) v += S[s * HS + d] * xdt[s * HS + d];
-      v = warp_sum(v);
-      if (lane == 0) {
-        gd[s] = dout[s] * v;
-        dcs[s] -= gd[s];
-      }
-    }
-    __syncthreads();
-    // S = d(x·dt) = (C Bᵀ ∘ L)ᵀ dy + dout ∘ du; dx = dt ∘ d(x·dt)
-    float* dxc = dx + row * QHD;
-    for_tiles(Q, hd, [&](int r0, int c0, const int (&sv)[kR],
-                         const int (&d)[kC]) {
-      float acc[kR][kC];
-      zero(acc);
-      tile_mac(r0, Q,
-               [&](int i, int t) {
-                 return t >= sv[i] ? cst[(int64_t)sv[i] * Q + t] *
-                                         expf(cs[t] - cs[sv[i]])
-                                   : 0.0f;
-               },
-               [&](int t, int j) { return dyc[(int64_t)t * hd + d[j]]; }, acc);
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j)
-          if (r0 + i < Q && c0 + j < hd) {
-            float* p = S + sv[i] * HS + d[j];
-            const float v = acc[i][j] + dout[sv[i]] * *p;
-            *p = v;
-            dxc[(int64_t)sv[i] * hd + d[j]] = dts[sv[i]] * v;
-          }
-    });
-    __syncthreads();
-    // dtx = x · d(x·dt), row by row
-    for (int s = warp; s < Q; s += kWarps) {
-      float v = 0.0f;
-      for (int d = lane; d < hd; d += 32)
-        v += xc[(int64_t)s * hd + d] * S[s * HS + d];
-      v = warp_sum(v);
-      if (lane == 0) dtx[s] = v;
-    }
-    __syncthreads();
-    // the block's partial sums of dh ∘ h_in; through exp(cs):
-    // d cs_t += exp(cs_t) (dy_t · (C h_in)_t), which is exp(cs_t) times
-    // the row sum of C ∘ (dy h_inᵀ), summed from rp in tile order
-    {
-      float v = 0.0f;
-      for (int e = tid; e < ds * hd; e += kThreads) {
-        const int i = (e / hd) * HS + e % hd;
-        v = fmaf(dh[i], hin[i], v);
-      }
-      red[tid] = v;
-    }
-    for (int t = tid; t < Q; t += kThreads) {
-      float v = 0.0f;
-      for (int k = 0; k < L.tc; ++k) v += rp[t * L.tc + k];
-      dcs[t] += ecs[t] * v;
-    }
-    __syncthreads();
-    // through exp(cs[-1]) and the gd terms: d cs[-1]; then the reverse
-    // cumsum into d(dt·A), ddt and dA
-    if (tid == 0) {
-      float dseg = 0.0f;
-      for (int i = 0; i < kThreads; ++i) dseg += red[i];
-      float tot = 0.0f;
-      for (int s = 0; s < Q; ++s) tot += gd[s];
-      dcs[Q - 1] += tot + seg * dseg;
-      // dA summed a chunk at a time, then over the chunks: a serial sum
-      // of all nc * Q terms loses more to rounding
-      float run = 0.0f, part = 0.0f;
-      float* ddtc = ddt + row * Q;
-      for (int q = Q - 1; q >= 0; --q) {
-        run += dcs[q];
-        ddtc[q] = dtx[q] + a * run;
-        part += dts[q] * run;
-      }
-      dA_acc += part;
-    }
-    // dh_in = exp(cs[-1]) dh + Cᵀ (exp(cs) ∘ dy)
-    for_tiles(ds, hd, [&](int r0, int c0, const int (&n)[kR],
-                          const int (&d)[kC]) {
-      float acc[kR][kC];
-      zero(acc);
-      tile_mac(0, Q,
-               [&](int i, int t) { return Cc[(int64_t)t * ds + n[i]] * ecs[t]; },
-               [&](int t, int j) { return dyc[(int64_t)t * hd + d[j]]; }, acc);
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j)
-          if (r0 + i < ds && c0 + j < hd) {
-            float* p = dh + n[i] * HS + d[j];
-            *p = seg * *p + acc[i][j];
-          }
-    });
-    __syncthreads();
+  if (c > 0) {  // Cᵀ(exp(cs) ∘ dy), as [d][n]
+    Operand yo = rows_of(dy + row * Q * hd, hd);
+    yo.f1 = ecs;
+    block_product<8, 4>(hd, ds, Q, yo, rows_of(Cc, ds), kAll, ring,
+                        store(dhs + (row - 1) * hds), NoPost{});
   }
-  if (tid == 0) dA[bh] = dA_acc;
 }
 
-// Raise both kernels' dynamic shared-memory limits to what the shapes
-// need; cudaErrorInvalidValue when a block may not have that much.
-int prepare(int Q, int hd, int ds, size_t* bwd_bytes, size_t* cb_bytes) {
-  *bwd_bytes = bwd_smem_bytes(Q, hd, ds);
-  *cb_bytes = cb_smem_bytes(Q, ds);
+// One thread per (row, state element e): the states entering the chunks,
+// h_in[0] = 0, h_in[c] = h_in[c-1]·exp(cs_{c-1}[-1]) + local[c-1] (the
+// forward's rounding), and dh leaving them, dh[nc-1] = dh_final or 0,
+// dh[c-1] = exp(cs_c[-1])·dh[c] + dlocal[c], in place over the slots the
+// local kernel filled. hs and dhs are (BH, nc, hd, ds); dh_final (BH, ds,
+// hd).
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_carry_kernel(const float* __restrict__ seg,
+                     const float* __restrict__ dh_final, int BH, int nc,
+                     int hd, int ds, float* __restrict__ hs,
+                     float* __restrict__ dhs) {
+  const int64_t hds = (int64_t)hd * ds;
+  const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (int64_t)BH * hds) return;
+  const int64_t bh = idx / hds, e = idx % hds;
+  const float* sg = seg + bh * nc;
+  float* h = hs + bh * nc * hds + e;
+  float* g = dhs + bh * nc * hds + e;
+  float v = 0.0f;
+  h[0] = 0.0f;
+  for (int c = 1; c < nc; ++c) {
+    v = __fadd_rn(__fmul_rn(v, sg[c - 1]), h[c * hds]);
+    h[c * hds] = v;
+  }
+  const int64_t d = e / ds, n = e % ds;
+  float u = dh_final ? dh_final[bh * hds + n * hd + d] : 0.0f;
+  g[(int64_t)(nc - 1) * hds] = u;
+  for (int c = nc - 2; c >= 0; --c) {
+    u = fmaf(sg[c + 1], u, g[c * hds]);
+    g[c * hds] = u;
+  }
+}
+
+// The backward of one chunk of one row, one block per (row, chunk); see
+// the note at the top. Writes dx, ddt, the chunk's part of dA and the
+// row's dB and dC of the chunk.
+template <int kQ, int kHd, int kDs>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm,
+                    const float* __restrict__ dy,
+                    const float* __restrict__ cb,
+                    const float* __restrict__ cs_in,
+                    const float* __restrict__ seg_in,
+                    const float* __restrict__ hs,
+                    const float* __restrict__ dhs, int nc, int Q_, int hd_,
+                    int ds_, int heads_per_group, float* __restrict__ dx,
+                    float* __restrict__ ddt, float* __restrict__ dA_part,
+                    float* __restrict__ dB_rows, float* __restrict__ dC_rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int Q = kQ ? kQ : Q_, hd = kHd ? kHd : hd_, ds = kDs ? kDs : ds_;
+  const MainSmem L(Q, hd, ds);
+  const int xw = L.xw;
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;  // bh * nc + c
+  const int bh = (int)(row / nc), c = (int)(row % nc);
+  const int64_t grow = (int64_t)(bh / heads_per_group) * nc + c;
+  const int64_t hds = (int64_t)hd * ds;
+  const float* xc = x + row * Q * hd;
+  const float* dyc = dy + row * Q * hd;
+  const float* Bc = Bm + grow * Q * ds;
+  const float* Cc = Cm + grow * Q * ds;
+  const float* cbc = cb + grow * Q * Q;
+  const float* hc = hs + row * hds;
+  const float* dhc = dhs + row * hds;
+  float* dxc = dx + row * Q * hd;
+  float* dBc = dB_rows + row * Q * ds;
+  float* dCc = dC_rows + row * Q * ds;
+  float* X = smem + L.X;
+  float* ring = smem + L.ring;
+  float* dts = smem + L.dts;
+  float* cs = smem + L.cs;
+  float* ecs = smem + L.ecs;
+  float* dout = smem + L.dout;
+  float* drow = smem + L.drow;
+  float* dcol = smem + L.dcol;
+  float* dce = smem + L.dce;
+  float* gd = smem + L.gd;
+  float* dtx = smem + L.dtx;
+  float* dcs = smem + L.dcs;
+  float* rev = smem + L.rev;
+  float* red = smem + L.red;
+  float* rowp = ring;                  // per-tile row sums
+  float* colp = ring + kThreads * 16;  // per-tile column sums
+  const float a = A[bh];
+  const float seg = seg_in[row];
+
+  // everything starts at 0: X above the diagonal, the padding, the sums
+  for (int e = tid; e < L.total; e += kThreads) smem[e] = 0.0f;
+  __syncthreads();
+  for (int q = tid; q < Q; q += kThreads) {
+    dts[q] = dt[row * Q + q];
+    cs[q] = cs_in[row * Q + q];
+  }
+  __syncthreads();
+  const float last = cs[Q - 1];
+  for (int q = tid; q < Q; q += kThreads) {
+    ecs[q] = expf(cs[q]);
+    dout[q] = expf(last - cs[q]);
+  }
+  for (Walk w(Q); w.r < Q; w.next())  // X = L, one expf an entry
+    if (w.c <= w.r) X[w.r * xw + w.c] = expf(cs[w.r] - cs[w.c]);
+  __syncthreads();
+
+  // dx = (C Bᵀ ∘ L)ᵀ dy for now: the C Bᵀ slabs scaled by L as they land
+  {
+    Operand cbl = rows_of(cbc, Q);
+    cbl.fm = X;
+    cbl.fml = xw;
+    block_product<8, 4>(
+        Q, hd, Q, cbl, rows_of(dyc, hd), kFromRow, ring,
+        [&](int, int r0, int c0, float (&acc)[8][4]) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (r0 + i < Q && c0 + j < hd)
+                dxc[(r0 + i) * hd + c0 + j] = acc[i][j];
+        },
+        NoPost{});
+  }
+
+  // dM = dy (x·dt)ᵀ (causal); X becomes dM ∘ L, and P = dM ∘ L ∘ C Bᵀ adds
+  // to d cs_t along its row and takes from d cs_s along its column
+  block_product<16, 4>(
+      Q, Q, hd, cols_of(dyc, hd), cols_of(xc, hd), kLower, ring,
+      [&](int p, int r0, int c0, float (&acc)[16][4]) {
+        float cpart[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int t = r0 + i;
+          float rpart = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int s = c0 + j;
+            if (t < Q && s <= t) {
+              float* xp = X + t * xw + s;
+              const float sv = __fmul_rn(__fmul_rn(acc[i][j], dts[s]), *xp);
+              *xp = sv;
+              const float pv = __fmul_rn(sv, cbc[t * Q + s]);
+              rpart += pv;
+              cpart[j] += pv;
+            }
+          }
+          rowp[p * 16 + i] = rpart;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) colp[p * 4 + j] = cpart[j];
+      },
+      [&](int m0, int tc) {
+        add_row_sums(rowp, 16, Q, m0, tc, drow);
+        add_col_sums(colp, 4, Q, cdiv(Q, 16), m0, tc, dcol);
+      });
+
+  // dB = exp(cs[-1] - cs) ∘ ((x·dt) dhᵀ) + (dM ∘ L)ᵀ C, per row
+  block_product<16, 4>(
+      Q, ds, hd, cols_of(xc, hd), rows_of(dhc, ds), kAll, ring,
+      [&](int, int r0, int c0, float (&acc)[16][4]) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int s = r0 + i, n = c0 + j;
+            if (s < Q && n < ds)
+              dBc[s * ds + n] =
+                  __fmul_rn(__fmul_rn(acc[i][j], dts[s]), dout[s]);
+          }
+      },
+      NoPost{});
+  block_product<16, 4>(
+      Q, ds, Q, resident(X, xw), rows_of(Cc, ds), kFromRow, ring,
+      [&](int, int r0, int c0, float (&acc)[16][4]) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int s = r0 + i, n = c0 + j;
+            if (s < Q && n < ds) {
+              float* p = dBc + s * ds + n;
+              *p = __fadd_rn(*p, acc[i][j]);
+            }
+          }
+      },
+      NoPost{});
+
+  // X = (dM ∘ L)ᵀ, in place
+  for (Walk w(Q); w.r < Q; w.next())
+    if (w.c > w.r) {
+      float* p = X + w.r * xw + w.c;
+      float* q = X + w.c * xw + w.r;
+      const float v = *p;
+      *p = *q;
+      *q = v;
+    }
+  __syncthreads();
+
+  // dC = exp(cs) ∘ (dy h_inᵀ) + (dM ∘ L) B, per row; the row sums of
+  // C ∘ (dy h_inᵀ) are the exp(cs) term of d cs
+  block_product<16, 4>(
+      Q, ds, hd, cols_of(dyc, hd), rows_of(hc, ds), kAll, ring,
+      [&](int p, int r0, int c0, float (&acc)[16][4]) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int t = r0 + i;
+          float part = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = c0 + j;
+            if (t < Q && n < ds) {
+              part = fmaf(Cc[t * ds + n], acc[i][j], part);
+              dCc[t * ds + n] = __fmul_rn(acc[i][j], ecs[t]);
+            }
+          }
+          rowp[p * 16 + i] = part;
+        }
+      },
+      [&](int m0, int tc) { add_row_sums(rowp, 16, Q, m0, tc, dce); });
+  block_product<16, 4>(
+      Q, ds, Q, resident(X, xw), rows_of(Bc, ds), kToRow, ring,
+      [&](int, int r0, int c0, float (&acc)[16][4]) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int t = r0 + i, n = c0 + j;
+            if (t < Q && n < ds) {
+              float* p = dCc + t * ds + n;
+              *p = __fadd_rn(*p, acc[i][j]);
+            }
+          }
+      },
+      NoPost{});
+
+  // du = B dh; d(x·dt) = dx so far + exp(cs[-1] - cs) ∘ du, dx = dt ∘ it;
+  // through exp(cs[-1] - cs), gd = exp(cs[-1] - cs) ∘ (du · x·dt) adds to
+  // d cs[-1] and takes from d cs_s; dtx = x · d(x·dt). The same tiles as
+  // the first product's, so each thread reads back its own dx.
+  float* gp = ring;
+  float* tp = ring + kThreads * 8;
+  block_product<8, 4>(
+      Q, hd, ds, cols_of(Bc, ds), cols_of(dhc, ds), kAll, ring,
+      [&](int p, int r0, int c0, float (&acc)[8][4]) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int s = r0 + i;
+          float g = 0.0f, u = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int d = c0 + j;
+            if (s < Q && d < hd) {
+              const float xv = xc[s * hd + d];
+              g = fmaf(acc[i][j], __fmul_rn(xv, dts[s]), g);
+              float* dp = dxc + s * hd + d;
+              const float v = fmaf(dout[s], acc[i][j], *dp);
+              *dp = __fmul_rn(dts[s], v);
+              u = fmaf(xv, v, u);
+            }
+          }
+          gp[p * 8 + i] = g;
+          tp[p * 8 + i] = u;
+        }
+      },
+      [&](int m0, int tc) {
+        add_row_sums(gp, 8, Q, m0, tc, gd);
+        add_row_sums(tp, 8, Q, m0, tc, dtx);
+      });
+
+  // d cs: through L, exp(cs[-1] - cs) and exp(cs); then d cs[-1] through
+  // exp(cs[-1]) (the sum of dh ∘ h_in) and the gd terms
+  float v = 0.0f;
+  for (int e = tid; e < hds; e += kThreads) v = fmaf(dhc[e], hc[e], v);
+  const float dseg = block_sum(v, red);
+  float gsum = 0.0f;
+  for (int q = tid; q < Q; q += kThreads) {
+    gd[q] = __fmul_rn(dout[q], gd[q]);
+    gsum += gd[q];
+    dcs[q] = __fadd_rn(__fsub_rn(__fsub_rn(drow[q], dcol[q]), gd[q]),
+                       __fmul_rn(ecs[q], dce[q]));
+  }
+  const float gtot = block_sum(gsum, red);
+  if (tid == 0) dcs[Q - 1] += gtot + seg * dseg;
+  __syncthreads();
+  // the reverse cumsum of d cs, a warp scan from the chunk's end
+  if (tid < 32) {
+    float carry = 0.0f;
+    for (int base = 0; base < Q; base += 32) {
+      const int r = base + tid;  // steps from the end
+      float s = r < Q ? dcs[Q - 1 - r] : 0.0f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, s, o);
+        if (tid >= o) s += u;
+      }
+      if (r < Q) rev[Q - 1 - r] = carry + s;
+      carry += __shfl_sync(0xffffffffu, s, 31);
+    }
+  }
+  __syncthreads();
+  float part = 0.0f;
+  for (int q = tid; q < Q; q += kThreads) {
+    ddt[row * Q + q] = fmaf(a, rev[q], dtx[q]);
+    part = fmaf(dts[q], rev[q], part);
+  }
+  const float dA_c = block_sum(part, red);
+  if (tid == 0) dA_part[row] = dA_c;
+}
+
+// dA[bh] = the sum of its chunks' parts in chunk order; with more than one
+// row a group, dB and dC of a group the sums of its rows' in row order.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_reduce_kernel(const float* __restrict__ dA_part, int BH, int nc,
+                      int groups, int heads_per_group, int64_t per_row,
+                      const float* __restrict__ dB_rows,
+                      const float* __restrict__ dC_rows,
+                      float* __restrict__ dA, float* __restrict__ dB,
+                      float* __restrict__ dC) {
+  const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (idx < BH) {
+    float v = 0.0f;
+    for (int c = 0; c < nc; ++c) v += dA_part[idx * nc + c];
+    dA[idx] = v;
+  }
+  if (heads_per_group > 1 && idx < groups * per_row) {
+    const int64_t g = idx / per_row, r = idx % per_row;
+    const int64_t base = g * heads_per_group * per_row + r;
+    float b = 0.0f, cc = 0.0f;
+    for (int h = 0; h < heads_per_group; ++h) {
+      b += dB_rows[base + h * per_row];
+      cc += dC_rows[base + h * per_row];
+    }
+    dB[idx] = b;
+    dC[idx] = cc;
+  }
+}
+
+// The main path's shapes (mamba2_370m: chunk 128, head 64, state 128) take
+// the instantiations with them fixed at compile time; other shapes the
+// generic ones. ``f`` is called with the local and the main kernel.
+template <typename F>
+auto with_kernels(int Q, int hd, int ds, F&& f) {
+  if (Q == 128 && hd == 64 && ds == 128)
+    return f(ssd_bwd_local_kernel<128, 64, 128>,
+             ssd_bwd_main_kernel<128, 64, 128>);
+  return f(ssd_bwd_local_kernel<0, 0, 0>, ssd_bwd_main_kernel<0, 0, 0>);
+}
+
+struct Sizes {
+  size_t cb, local, main;
+};
+
+// Raise the kernels' dynamic shared-memory limits to what the shapes need,
+// with all of an SM's shared memory carved out for the two that hold two
+// blocks an SM; cudaErrorInvalidValue when a block may not have that much.
+template <typename KL, typename KM>
+int prepare(KL local_k, KM main_k, int Q, int hd, int ds, Sizes* z) {
+  z->cb = cb_smem_bytes(Q);
+  z->local = local_smem_bytes(Q, hd, ds);
+  z->main = main_smem_bytes(Q, hd, ds);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return (int)err;
-  if (*bwd_bytes > (size_t)optin || *cb_bytes > (size_t)optin)
+  if (z->main > (size_t)optin || z->local > (size_t)optin ||
+      z->cb > (size_t)optin)
     return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(ssd_bwd_kernel,
+  err = cudaFuncSetAttribute(ssd_bwd_cb_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*bwd_bytes);
+                             (int)z->cb);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(ssd_bwd_cb_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)*cb_bytes);
+  err = cudaFuncSetAttribute(local_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)z->local);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(main_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)z->main);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(local_k,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(
+      main_k, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. x and dy (BH, nc, Q, hd), dt (BH,
-// nc, Q), A (BH,), B and C (BH / heads_per_group, nc, Q, ds), dh_final (BH,
-// ds, hd) or null (a zero gradient of the final state), all f32 and
-// contiguous. Scratch: cb_ts and cb_st (BH / heads_per_group, nc, Q, Q),
-// hs (BH, nc, ds, hd). Writes dx (BH, nc, Q, hd), ddt (BH, nc, Q), dA
-// (BH,), and dB and dC per row (BH, nc, Q, ds). Launches the pre-pass and
-// the backward on ``stream``; returns the first CUDA error (0 on
-// success), cudaErrorInvalidValue when the shapes need more shared memory
-// than a block may have. Allocates nothing.
-extern "C" int ssd_scan_bwd_launch(const float* x, const float* dt,
-                                   const float* A, const float* Bm,
-                                   const float* Cm, const float* dy,
-                                   const float* dh_final, float* cb_ts,
-                                   float* cb_st, float* hs, int BH, int nc,
-                                   int Q, int hd, int ds, int heads_per_group,
-                                   float* dx, float* ddt, float* dA, float* dB,
-                                   float* dC, void* stream) {
+// Plain C entry point, loaded with ctypes. x and dy (BH, nc, Q, hd), dt
+// (BH, nc, Q), A (BH,), B and C (G, nc, Q, ds) with G = BH /
+// heads_per_group, dh_final (BH, ds, hd) or null (a zero gradient of the
+// final state), all f32 and contiguous. Scratch: cb (G, nc, Q, Q), cs (BH,
+// nc, Q), seg and dA_part (BH, nc), hs and dhs (BH, nc, hd, ds), and, with
+// more than one row a group, dB_rows and dC_rows (BH, nc, Q, ds) (with one,
+// pass dB and dC there). Writes dx (BH, nc, Q, hd), ddt (BH, nc, Q), dA
+// (BH,), dB and dC (G, nc, Q, ds). Launches the five kernels on ``stream``;
+// returns the first CUDA error (0 on success), cudaErrorInvalidValue when
+// the shapes need more shared memory than a block may have. Allocates
+// nothing.
+extern "C" int ssd_scan_bwd_launch(
+    const float* x, const float* dt, const float* A, const float* Bm,
+    const float* Cm, const float* dy, const float* dh_final, float* cb,
+    float* cs, float* seg, float* hs, float* dhs, float* dA_part,
+    float* dB_rows, float* dC_rows, int BH, int nc, int Q, int hd, int ds,
+    int heads_per_group, float* dx, float* ddt, float* dA, float* dB,
+    float* dC, void* stream) {
   if (BH == 0) return 0;
-  size_t bwd_bytes = 0, cb_bytes = 0;
-  const int err = prepare(Q, hd, ds, &bwd_bytes, &cb_bytes);
-  if (err != 0) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int groups = BH / heads_per_group;
-  if (nc > 0) {
-    ssd_bwd_cb_kernel<<<groups * nc, kThreads, cb_bytes, s>>>(Bm, Cm, Q, ds,
-                                                              cb_ts, cb_st);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  ssd_bwd_kernel<<<BH, kThreads, bwd_bytes, s>>>(
-      x, dt, A, Bm, Cm, dy, dh_final, cb_ts, cb_st, hs, nc, Q, hd, ds,
-      heads_per_group, dx, ddt, dA, dB, dC);
-  return (int)cudaGetLastError();
+  return with_kernels(Q, hd, ds, [&](auto local_k, auto main_k) {
+    Sizes z;
+    int err = prepare(local_k, main_k, Q, hd, ds, &z);
+    if (err != 0) return err;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int groups = BH / heads_per_group;
+    const int64_t per_row = (int64_t)nc * Q * ds;
+    const int64_t states = (int64_t)BH * hd * ds;
+    const auto check = [] { return (int)cudaGetLastError(); };
+    if (nc > 0) {
+      ssd_bwd_cb_kernel<<<groups * nc, kThreads, z.cb, s>>>(Bm, Cm, Q, ds,
+                                                            cb);
+      if ((err = check())) return err;
+      local_k<<<BH * nc, kThreads, z.local, s>>>(x, dt, A, Bm, Cm, dy, nc, Q,
+                                               hd, ds, heads_per_group, cs,
+                                               seg, hs, dhs);
+      if ((err = check())) return err;
+      if (states > 0) {
+        ssd_bwd_carry_kernel<<<(unsigned)((states + kThreads - 1) / kThreads),
+                               kThreads, 0, s>>>(seg, dh_final, BH, nc, hd, ds,
+                                                 hs, dhs);
+        if ((err = check())) return err;
+      }
+      main_k<<<BH * nc, kThreads, z.main, s>>>(
+          x, dt, A, Bm, Cm, dy, cb, cs, seg, hs, dhs, nc, Q, hd, ds,
+          heads_per_group, dx, ddt, dA_part, dB_rows, dC_rows);
+      if ((err = check())) return err;
+    }
+    const int64_t n = heads_per_group > 1 && groups * per_row > BH
+                          ? groups * per_row
+                          : BH;
+    ssd_bwd_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads),
+                            kThreads, 0, s>>>(dA_part, BH, nc, groups,
+                                              heads_per_group, per_row,
+                                              dB_rows, dC_rows, dA, dB, dC);
+    return check();
+  });
 }
 
-// Bytes of dynamic shared memory a backward block takes at these shapes.
-extern "C" size_t ssd_scan_bwd_smem_bytes(int Q, int hd, int ds) {
-  return bwd_smem_bytes(Q, hd, ds);
+// The kernels of a call, in launch order, as the profiler names them.
+extern "C" const char* ssd_scan_bwd_kernel_names() {
+  return "ssd_bwd_cb_kernel ssd_bwd_local_kernel ssd_bwd_carry_kernel "
+         "ssd_bwd_main_kernel ssd_bwd_reduce_kernel";
 }
 
-// Blocks of the backward and of its pre-pass that one SM holds at once at
-// these shapes, as the occupancy calculator gives them; returns a CUDA
-// error.
-extern "C" int ssd_scan_bwd_blocks_per_sm(int Q, int hd, int ds, int* bwd,
-                                          int* pre) {
-  size_t bwd_bytes = 0, cb_bytes = 0;
-  int err = prepare(Q, hd, ds, &bwd_bytes, &cb_bytes);
-  if (err != 0) return err;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      bwd, ssd_bwd_kernel, kThreads, bwd_bytes);
-  if (err != 0) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      pre, ssd_bwd_cb_kernel, kThreads, cb_bytes);
+// Per kernel of a call, in launch order: the bytes of dynamic shared memory
+// a block takes at these shapes, and the blocks one SM holds at once, as
+// the occupancy calculator gives them; returns a CUDA error.
+extern "C" int ssd_scan_bwd_kernel_info(int Q, int hd, int ds,
+                                        long long* smem_bytes, int* blocks) {
+  return with_kernels(Q, hd, ds, [&](auto local_k, auto main_k) {
+    Sizes z;
+    int err = prepare(local_k, main_k, Q, hd, ds, &z);
+    if (err != 0) return err;
+    const size_t bytes[5] = {z.cb, z.local, 0, z.main, 0};
+    for (int i = 0; i < 5; ++i) smem_bytes[i] = (long long)bytes[i];
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks[0], ssd_bwd_cb_kernel, kThreads, z.cb)))
+      return err;
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks[1], local_k, kThreads, z.local)))
+      return err;
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks[2], ssd_bwd_carry_kernel, kThreads, 0)))
+      return err;
+    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks[3], main_k, kThreads, z.main)))
+      return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[4], ssd_bwd_reduce_kernel, kThreads, 0);
+  });
 }
 
 extern "C" const char* ssd_scan_bwd_error_string(int err) {

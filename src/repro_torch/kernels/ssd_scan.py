@@ -28,14 +28,17 @@ version). On the card :class:`SSDScan` (an autograd Function) runs
 :func:`ssd_scan_cuda` forward and ``ops.ssd_scan_bwd`` backward, which
 launches ``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd_cuda`; no TPU kernel
 corresponds: the JAX package differentiates its jnp scan). A backward
-call is two CUDA kernels: a pre-pass that writes C Bᵀ of each group and
-chunk in both layouts, then one block per row that recomputes the states
-entering the chunks into scratch and walks the chunks in reverse. dB and
-dC come per row, (BH, nc, Q, ds); the wrapper sums a group's rows (no
-atomics, so a call repeats bit for bit). Its scratch at the training
-shapes of ``mamba2_370m`` (BH = 256 in 8 groups, nc = 32, Q = 128, hd =
-64, ds = 128): 1.07 GB for the per-row dB and dC, 268 MB for the states,
-34 MB for C Bᵀ.
+call is five CUDA kernels (:data:`SSD_BWD_KERNELS`): C Bᵀ of each group
+and chunk; per (row, chunk) the cumsum and the chunk-local state and
+state gradient; the two recurrences over the chunks, elementwise; the
+main pass per (row, chunk); the sums of dA over the chunks and of dB and
+dC over a group's rows (no atomics, so a call repeats bit for bit).
+:func:`ssd_scan_bwd_stages` is its plain mirror, stage by stage, for the
+tests and ``chip_smoke.py``. Its scratch at the training shapes of
+``mamba2_370m`` (BH = 256 in 8 groups, nc = 32, Q = 128, hd = 64, ds =
+128): 1.07 GB for the per-row dB and dC (none with one row a group),
+268 MB each for the states entering the chunks and dh leaving them,
+16.8 MB for C Bᵀ, 4.2 MB for cs.
 
 Shapes (all float32): x (BH, nc, Q, hd); dt (BH, nc, Q); A (BH,);
 Bm, Cm (G, nc, Q, ds) with G dividing BH: row ``bh`` reads group
@@ -183,44 +186,52 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh=None):
         return tuple(torch.autograd.grad(outs, ins, grads))
 
 
+# the backward's CUDA kernels, in launch order, as the profiler names them
+SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_local_kernel",
+                   "ssd_bwd_carry_kernel", "ssd_bwd_main_kernel",
+                   "ssd_bwd_reduce_kernel")
+
+
 @functools.cache
 def _bwd_entry_points():
     lib = _build.load("ssd_scan_bwd")
     launch = lib.ssd_scan_bwd_launch
-    launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p] * 6
     launch.restype = ctypes.c_int
-    smem = lib.ssd_scan_bwd_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
-    smem.restype = ctypes.c_size_t
-    occupancy = lib.ssd_scan_bwd_blocks_per_sm
-    occupancy.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int)] * 2
-    occupancy.restype = ctypes.c_int
+    info = lib.ssd_scan_bwd_kernel_info
+    info.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+    info.restype = ctypes.c_int
     error_string = lib.ssd_scan_bwd_error_string
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
-    return launch, smem, occupancy, error_string
+    return launch, info, error_string
 
 
 def ssd_scan_bwd_occupancy(Q, hd, ds):
-    """The backward block's bytes of dynamic shared memory, and the blocks
-    of the backward and of its C Bᵀ pre-pass that one SM holds at once."""
-    _, smem, occupancy, error_string = _bwd_entry_points()
-    bwd, pre = ctypes.c_int(0), ctypes.c_int(0)
-    err = occupancy(Q, hd, ds, ctypes.byref(bwd), ctypes.byref(pre))
+    """Per kernel of a backward call (:data:`SSD_BWD_KERNELS`): its block's
+    bytes of dynamic shared memory and the blocks that one SM holds at
+    once at these shapes, as CUDA's occupancy calculator gives them."""
+    _, info, error_string = _bwd_entry_points()
+    n = len(SSD_BWD_KERNELS)
+    smem = (ctypes.c_longlong * n)()
+    blocks = (ctypes.c_int * n)()
+    err = info(Q, hd, ds, smem, blocks)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd occupancy query failed: "
                            f"{error_string(err).decode()} ({err})")
-    return dict(bwd_smem_bytes=smem(Q, hd, ds), bwd_blocks_per_sm=bwd.value,
-                prepass_blocks_per_sm=pre.value)
+    return dict(smem_bytes=dict(zip(SSD_BWD_KERNELS, smem)),
+                blocks_per_sm=dict(zip(SSD_BWD_KERNELS, blocks)))
 
 
-def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None):
-    """Launch the backward's pre-pass and kernel on the current stream (no
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None, scratch=None):
+    """Launch the backward's kernels on the current stream (no
     synchronisation); returns (dx, ddt, dA, dB, dC) with dB and dC summed
     over each group's rows. Raises on a tensor the kernel does not take and
-    on a launch the driver refuses."""
+    on a launch the driver refuses. A dict given as ``scratch`` receives
+    the call's intermediates: ``cs`` (BH, nc, Q), the states entering the
+    chunks ``h_in`` and dh leaving them ``dh_out``, both (BH, nc, ds, hd)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan_bwd_cuda needs CUDA tensors, got {dev}")
@@ -238,31 +249,87 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None):
         checks.append((dh, "dh", (BH, ds, hd)))
     for t, name, shape in checks:
         _build.check_tensor("ssd_scan_bwd", t, name, f32, shape, dev)
-    launch, smem, _, error_string = _bwd_entry_points()
+    launch, _, error_string = _bwd_entry_points()
 
     def empty(*shape):
         return torch.empty(shape, dtype=f32, device=dev)
 
     dx, ddt, dA = empty(BH, nc, Q, hd), empty(BH, nc, Q), empty(BH)
-    dB_rows, dC_rows = empty(BH, nc, Q, ds), empty(BH, nc, Q, ds)
-    cb_ts, cb_st = empty(G, nc, Q, Q), empty(G, nc, Q, Q)  # scratch
-    hs = empty(BH, nc, ds, hd)  # scratch: the states entering the chunks
+    dB, dC = empty(G, nc, Q, ds), empty(G, nc, Q, ds)
+    # scratch: C Bᵀ, cs, exp(cs[-1]), the states and dh as [d][n], the
+    # chunks' parts of dA, and dB and dC per row when rows share a group
+    cb, cs, seg = empty(G, nc, Q, Q), empty(BH, nc, Q), empty(BH, nc)
+    hs, dhs, dA_part = empty(BH, nc, hd, ds), empty(BH, nc, hd, ds), empty(
+        BH, nc)
+    dB_rows, dC_rows = ((empty(BH, nc, Q, ds), empty(BH, nc, Q, ds))
+                        if hpg > 1 else (dB, dC))
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _build.ptr
     err = launch(p(x), p(dt), p(A), p(Bm), p(Cm), p(dy),
-                 p(dh) if dh is not None else None, p(cb_ts), p(cb_st), p(hs),
-                 BH, nc, Q, hd, ds, hpg, p(dx), p(ddt), p(dA), p(dB_rows),
-                 p(dC_rows), ctypes.c_void_p(stream))
+                 p(dh) if dh is not None else None, p(cb), p(cs), p(seg),
+                 p(hs), p(dhs), p(dA_part), p(dB_rows), p(dC_rows), BH, nc,
+                 Q, hd, ds, hpg, p(dx), p(ddt), p(dA), p(dB), p(dC),
+                 ctypes.c_void_p(stream))
     if err != 0:
-        msg = error_string(err).decode()
         raise RuntimeError(
-            f"ssd_scan_bwd kernel launch failed: {msg} ({err}); Q={Q}, "
-            f"hd={hd}, ds={ds} need {smem(Q, hd, ds)} bytes of shared "
-            "memory a block")
-    if hpg > 1:
-        dB_rows = dB_rows.view(G, hpg, nc, Q, ds).sum(dim=1)
-        dC_rows = dC_rows.view(G, hpg, nc, Q, ds).sum(dim=1)
-    return dx, ddt, dA, dB_rows, dC_rows
+            f"ssd_scan_bwd kernel launch failed: {error_string(err).decode()}"
+            f" ({err}); Q={Q}, hd={hd}, ds={ds}")
+    if scratch is not None:
+        scratch.update(cs=cs, h_in=hs.transpose(-1, -2),
+                       dh_out=dhs.transpose(-1, -2))
+    return dx, ddt, dA, dB, dC
+
+
+def ssd_scan_bwd_stages(x, dt, A, Bm, Cm, dy, dh=None):
+    """The backward kernel's stages in plain PyTorch, for the tests and
+    ``chip_smoke.py``: the chunk-entry states ``h_in`` and dh at each
+    chunk's exit ``dh_out`` (BH, nc, ds, hd) by the two recurrences over
+    the chunk-local terms, then every chunk's gradients in closed form at
+    once, summed as the kernel sums them (dA over the chunks, dB and dC
+    over a group's rows). Returns dict(cs, h_in, dh_out, grads=(dx, ddt,
+    dA, dB, dC)); the grads are those of :func:`ssd_scan_bwd_plain`."""
+    BH, nc, Q, hd = x.shape
+    ds = Bm.shape[-1]
+    G, hpg = _groups(x, Bm)
+    Bc = Bm.repeat_interleave(hpg, dim=0)  # (BH, nc, Q, ds), a row's own
+    Cc = Cm.repeat_interleave(hpg, dim=0)
+    cs = torch.cumsum(dt * A[:, None, None], dim=-1)
+    seg = torch.exp(cs[..., -1])
+    ecs = torch.exp(cs)[..., None]
+    dout = torch.exp(cs[..., -1:] - cs)[..., None]
+    xdt = x * dt[..., None]
+    local = Bc.transpose(-1, -2) @ (xdt * dout)  # (BH, nc, ds, hd)
+    dlocal = Cc.transpose(-1, -2) @ (dy * ecs)
+    h_in, dh_out = torch.zeros_like(local), torch.zeros_like(local)
+    h = torch.zeros_like(local[:, 0])
+    g = torch.zeros_like(h) if dh is None else dh
+    for c in range(nc):
+        h_in[:, c] = h
+        h = h * seg[:, c, None, None] + local[:, c]
+        dh_out[:, nc - 1 - c] = g
+        g = g * seg[:, nc - 1 - c, None, None] + dlocal[:, nc - 1 - c]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :],
+                              float("-inf")))
+    CB = Cc @ Bc.transpose(-1, -2)
+    S = (dy @ xdt.transpose(-1, -2)) * L  # dM ∘ L (L is 0 above)
+    P = S * CB
+    du = Bc @ dh_out
+    dxdt = (CB * L).transpose(-1, -2) @ dy + dout * du
+    dyh = dy @ h_in.transpose(-1, -2)  # (Q, ds)
+    dC = S @ Bc + ecs * dyh
+    dB = S.transpose(-1, -2) @ Cc + dout * (xdt @ dh_out.transpose(-1, -2))
+    gd = dout[..., 0] * (du * xdt).sum(-1)
+    dcs = P.sum(-1) - P.sum(-2) - gd + ecs[..., 0] * (Cc * dyh).sum(-1)
+    last = gd.sum(-1) + seg * (dh_out * h_in).sum((-1, -2))
+    dcs = torch.cat([dcs[..., :-1], dcs[..., -1:] + last[..., None]], -1)
+    rev = dcs.flip(-1).cumsum(-1).flip(-1)
+    ddt = (x * dxdt).sum(-1) + A[:, None, None] * rev
+    dA = (dt * rev).sum(-1).sum(-1)
+    dB = dB.view(G, hpg, nc, Q, ds).sum(1)
+    dC = dC.view(G, hpg, nc, Q, ds).sum(1)
+    return dict(cs=cs, h_in=h_in, dh_out=dh_out,
+                grads=(dt[..., None] * dxdt, ddt, dA, dB, dC))
 
 
 class SSDScan(torch.autograd.Function):

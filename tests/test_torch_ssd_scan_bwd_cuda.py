@@ -11,7 +11,9 @@ Tolerance: every output (dx, ddt, dA, dB, dC) within the forward's
 |kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain|; where summation order
 alone breaks that, the kernel's largest error to a float64 plain version
 must be at most twice the float32 plain version's (both are printed in
-the assertion message).
+the assertion message). The intermediates the kernels write (the states
+entering the chunks, dh leaving them) are held to the plain mirror of
+the stages, ``ssd_scan_bwd_stages``, with the same rtol and atol.
 """
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import (
-    SSDScan, ssd_scan_bwd_cuda, ssd_scan_bwd_plain)
+    SSDScan, ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_stages)
 from test_torch_ssd_scan_cuda import _inputs, _on
 
 RTOL = 1e-4
@@ -171,3 +173,50 @@ def test_graph_replay_matches_eager(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(out, eager):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,nc,Q,hd,ds,groups", [
+    (64, 4, 128, 64, 128, 2),      # the main path's instantiation
+    (128, 2, 128, 64, 16, 1),      # jamba's group shape
+    (3, 2, 37, 5, 9, None),        # odd sizes
+])
+def test_two_calls_give_the_same_bits(cuda_device, BH, nc, Q, hd, ds,
+                                      groups):
+    args = _on(_inputs(BH, nc, Q, hd, ds, 19, groups), cuda_device)
+    dy = _dy(args[0], 20)
+    first = ssd_scan_bwd_cuda(*args, dy)
+    second = ssd_scan_bwd_cuda(*args, dy)
+    for name, a, b in zip(NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,nc,Q,hd,ds,groups,with_dh", [
+    (32, 6, 128, 64, 128, 2, True),
+    (6, 3, 150, 63, 129, 3, False),
+])
+def test_intermediates_match_the_plain_stages(cuda_device, BH, nc, Q, hd,
+                                              ds, groups, with_dh):
+    """The states entering the chunks and dh leaving them, as the kernels
+    write them, against the plain mirror of the stages; the mirror's
+    gradients against autograd."""
+    args = _on(_inputs(BH, nc, Q, hd, ds, 27, groups), cuda_device)
+    dy = _dy(args[0], 28)
+    dh = None
+    if with_dh:
+        dh = torch.as_tensor(np.random.default_rng(29).standard_normal(
+            (BH, ds, hd)).astype(np.float32), device=cuda_device)
+    inter = {}
+    got = ssd_scan_bwd_cuda(*args, dy, dh, scratch=inter)
+    torch.cuda.synchronize()
+    mirror = ssd_scan_bwd_stages(*args, dy, dh)
+    for k in ("h_in", "dh_out"):
+        want = mirror[k]
+        scale = float(want.abs().max())
+        torch.testing.assert_close(inter[k], want, rtol=RTOL,
+                                   atol=ATOL_OF_MAX * scale, msg=k)
+    assert torch.equal(inter["h_in"][:, 0], torch.zeros_like(
+        inter["h_in"][:, 0]))
+    assert_bwd_close(got, args, dy, dh, what="intermediates")
+    assert_bwd_close(mirror["grads"], args, dy, dh, what="mirror")
