@@ -32,10 +32,10 @@ its seconds, and any failure raises (non-zero exit, no result line):
    from the FLOPs and bytes the call needs, the achieved TFLOP/s and share
    of the bound, each kernel's device time, the scan's shared memory and
    both kernels' blocks per SM;
-   then the scan's backward (``csrc/ssd_scan_bwd.cu``, five CUDA kernels a
-   call: C Bᵀ, the chunk-local states, the two recurrences over the
-   chunks, the main pass per row and chunk, the sums over chunks and
-   rows) against autograd through the plain scan at
+   then the scan's backward (``csrc/ssd_scan_bwd.cu``, four CUDA kernels a
+   call: C Bᵀ, the states and dh per row over the chunks, the main pass
+   per row and chunk on the tensor cores in 3xTF32, the sums over chunks
+   and rows) against autograd through the plain scan at
    the training shapes of ``mamba2_370m`` (the same as phase 4's), at a
    ragged 4,000 whose 96 pad rows (dt, x, B, C and dy 0) must get exactly
    0 gradients, and at jamba's group shape (``ds`` 16, 128 heads of 64 in
@@ -44,7 +44,8 @@ its seconds, and any failure raises (non-zero exit, no result line):
    the float32 plain version's error to a float64 plain version (both
    printed); the states entering the chunks and dh leaving them against
    the plain mirror of the stages; two calls equal bit for bit; times,
-   the bound from the FLOPs and bytes, each kernel's device time, shared
+   the bound from the FLOPs and bytes at the TF32 rate of the tensor cores
+   it uses (and at the fp32 rate), each kernel's device time, shared
    memory and blocks per SM;
 5. route-rate-drain kernel against its plain version, bit for bit (NaN
    where the plain version has NaN): random routes at the paper's 1D and
@@ -242,6 +243,7 @@ GOLDEN = os.path.join(ROOT, "tests", "data_engine_golden.json")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 
 PAPER_1D = dict(workload="workload1", topo="1d", scale="paper",
                 horizon_ms=10.0)
@@ -2628,9 +2630,12 @@ def ssd_bwd_bound_ms(x, Bm):
     chunk, C Bᵀ's causal half once per group and chunk, and per row and
     chunk B dh, dy h_inᵀ, (x·dt) dhᵀ, Cᵀ(exp(cs) ∘ dy) and the state
     recomputation, Q·ds·hd each; the exp(cs) term of d cs is a row sum of
-    C ∘ (dy h_inᵀ), so C h_in is not needed) at the float32 rate, against
-    the inputs (x, dt, A, B, C, dy) read once and the outputs (dx, ddt,
-    dA, dB, dC) written once; the larger of the two."""
+    C ∘ (dy h_inᵀ), so C h_in is not needed), three TF32 products each
+    (3xTF32) at the tensor cores' TF32 rate, against the inputs (x, dt, A,
+    B, C, dy) read once and the outputs (dx, ddt, dA, dB, dC) written
+    once; the larger of the two. Returns it, what bounds it, the FLOPs,
+    the bytes, and the bound at the float32 rate outside the tensor cores
+    (the unit of the backward's first design)."""
     BH, nc, Q, hd = x.shape
     G, ds = Bm.shape[0], Bm.shape[-1]
     tri = Q * (Q + 1) // 2
@@ -2639,10 +2644,11 @@ def ssd_bwd_bound_ms(x, Bm):
     moved = 4 * (3 * BH * nc * Q * hd          # x, dy; dx
                  + 2 * BH * nc * Q + 2 * BH    # dt, A; ddt, dA
                  + 4 * G * nc * Q * ds)        # B, C; dB, dC
-    by_ops = flops / FP32_OPS_PER_S * 1e3
+    by_ops = 3 * flops / TF32_OPS_PER_S * 1e3
     by_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes
-            else "bytes", flops, moved)
+            else "bytes", flops, moved,
+            max(flops / FP32_OPS_PER_S * 1e3, by_bytes))
 
 
 def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
@@ -2692,7 +2698,8 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
                         warmup=1)
     plain_ms = time_ms(lambda: ssd_scan_bwd_plain(*args, dy), reps=3,
                        warmup=1)
-    bound_ms, bound_by, flops, moved = ssd_bwd_bound_ms(args[0], args[3])
+    bound_ms, bound_by, flops, moved, fp32_bound_ms = ssd_bwd_bound_ms(
+        args[0], args[3])
     _, _, rows = device_profile(lambda: ssd_scan_bwd_cuda(*args, dy))
     kernel_device_ms = {name: sum(r[0] for r in rows
                                   if kernel_named(r[2], name)) / 1e3
@@ -2742,7 +2749,9 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
               kernel_ms=kernel_ms, plain_ms=plain_ms,
               plain_is="autograd through ssd_scan_plain: its forward and "
                        "backward",
-              bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+              bound_ms=bound_ms, bound_by=bound_by,
+              bound_unit="3xTF32 on the tensor cores",
+              fp32_bound_ms=fp32_bound_ms, gflop=flops / 1e9,
               bytes=moved, tflop_per_s=flops / 1e9 / kernel_ms,
               share_of_bound=bound_ms / kernel_ms,
               kernel_device_ms=kernel_device_ms, jamba_kernel_ms=jamba_ms,
@@ -2750,7 +2759,8 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
               occupancy=ssd_scan_bwd_occupancy(Q, hd, ds),
               jamba_occupancy=ssd_scan_bwd_occupancy(Q, 64, 16)))
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                fp32_bound_ms=fp32_bound_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -3489,6 +3499,8 @@ def run_phases(dev, dry, t0) -> int:
              max_abs_err=ssd_bwd["max_abs_err"], ms=ssd_bwd["ms"],
              plain_ms=ssd_bwd["plain_ms"], bound_ms=ssd_bwd["bound_ms"],
              bound_by=ssd_bwd["bound_by"], library_ms=None,
+             # the bound at the float32 rate, the first design's unit
+             fp32_bound_ms=ssd_bwd["fp32_bound_ms"],
              mesh_launches=mesh_train["ssd_scan_bwd"]),
         dict(name="router_rate_drain", route="cuda",
              source="src/repro_torch/kernels/csrc/router_tick.cu",

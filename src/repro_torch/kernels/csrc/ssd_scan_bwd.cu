@@ -1,5 +1,5 @@
-// The backward of the Mamba-2 SSD chunk scan for Hopper (sm_90a), fp32 on
-// the CUDA cores.
+// The backward of the Mamba-2 SSD chunk scan for Hopper (sm_90a), its
+// products on the tensor cores in 3xTF32.
 //
 // No TPU kernel corresponds: the JAX package differentiates its jnp
 // ssd_chunked (src/repro/models/mamba2.py:71) and never calls its Pallas
@@ -18,108 +18,131 @@
 //   into d(dt·A), which gives ddt (with x · d(x·dt)) and dA
 //   dh_in = exp(cs[-1]) dh + Cᵀ(exp(cs) ∘ dy)
 // Given h_in and dh, everything a chunk needs is local to it (cs is a
-// cumsum within the chunk). Only two elementwise recurrences over the
-// chunks are serial: the states forward and dh backward.
+// cumsum within the chunk). Only two recurrences over the chunks are
+// serial: the states forward and dh backward.
 //
 // Bound on an H100: operations. At the training shapes of mamba2_370m
 // (BH = 256 rows in 8 groups, nc = 32, Q = 128, hd = 64, ds = 128) the
-// products come to 138.4 GFLOP of fp32 FMAs (the causal halves of dM,
-// (dM ∘ L) B, (dM ∘ L)ᵀ C and (C Bᵀ ∘ L)ᵀ dy and of C Bᵀ once per group;
-// B dh, dy h_inᵀ, (x·dt) dhᵀ, Cᵀ(exp(cs) ∘ dy) and the chunk-local states,
-// Q·ds·hd each), 2.07 ms at 67 TFLOP/s, against 0.88 GB of inputs read
-// once and outputs written once (x, dy, dx; dt, ddt; A, dA; B, C, dB, dC
-// a group: 0.26 ms at 3.35 TB/s). chip_smoke's ssd_bwd_bound_ms works it
-// out from the shapes.
+// products come to 138.4 GFLOP (the causal halves of dM, (dM ∘ L) B,
+// (dM ∘ L)ᵀ C and (C Bᵀ ∘ L)ᵀ dy and of C Bᵀ once per group; B dh,
+// dy h_inᵀ, (x·dt) dhᵀ, Cᵀ(exp(cs) ∘ dy) and the chunk-local states,
+// Q·ds·hd each): 2.07 ms at the fp32 rate outside the tensor cores (67
+// TFLOP/s), and, as three TF32 products each, 0.84 ms at the TF32 rate
+// (495 TFLOP/s), against 0.88 GB of inputs read once and outputs written
+// once (x, dy, dx; dt, ddt; A, dA; B, C, dB, dC a group: 0.26 ms at 3.35
+// TB/s). chip_smoke's ssd_bwd_bound_ms works them out from the shapes.
 //
-// Design: five kernels a call, every one of 256 threads; the grid of the
-// two that do the products is one block per (row, chunk), 8,192 blocks at
-// the training shapes (the previous design: one block of 512 threads per
-// row walking all 32 chunks, one block an SM, 8.7x this bound).
+// Design: four kernels a call (the first design, one block of 512 threads
+// a row walking its 32 chunks, took 8.7x the fp32 bound).
 // 1. ssd_bwd_cb_kernel, one block per (group, chunk): C Bᵀ of the chunk,
 //    [t][s], 0 above the diagonal, into scratch.
-// 2. ssd_bwd_local_kernel, one block per (row, chunk): cs = cumsum(dt·A)
-//    in the forward's order (one thread, as the forward takes it; it
-//    writes cs and exp(cs[-1]) to scratch for the later kernels), then the
-//    chunk-local state Bᵀ((x·dt) ∘ exp(cs[-1] - cs)) with the forward's
-//    arithmetic (the states come out bit for bit the forward's), and the
-//    chunk-local gradient Cᵀ(exp(cs) ∘ dy); both (hd, ds), into the
-//    slots of the states and of dh that the next kernel completes.
-// 3. ssd_bwd_carry_kernel, one thread per (row, state element): the two
-//    recurrences, h_in[c+1] = h_in[c]·exp(cs_c[-1]) + local[c] (rounded
-//    as the forward rounds it) and dh[c-1] = exp(cs_c[-1])·dh[c] +
-//    dlocal[c] from dh_final or 0, in place.
-// 4. ssd_bwd_main_kernel, one block per (row, chunk), two blocks an SM
-//    (107,136 bytes of shared memory, registers capped at 128): L formed
-//    once in shared memory (one expf per entry), then the chunk's products
-//    as block-wide passes over its operands: (C Bᵀ ∘ L)ᵀ dy; dM, turned
-//    in place into dM ∘ L with the row and column sums of dM ∘ C Bᵀ ∘ L;
-//    dB; the matrix transposed in place; dC; B dh with d(x·dt), dx and
-//    the d cs terms; then the reverse cumsum as a warp scan into ddt and
-//    the chunk's part of dA. dB and dC are written per row.
-// 5. ssd_bwd_reduce_kernel: dA summed over the chunks, dB and dC over a
+// 2. ssd_bwd_states_kernel, one block per row over its chunks: the chunk
+//    cumsums into scratch (one lane a chunk, each in the forward's order),
+//    then the two recurrences, their chunk-local products (Bᵀ((x·dt) ∘
+//    exp(cs[-1] - cs)) and Cᵀ(exp(cs) ∘ dy)) in turn with the carries, the
+//    states and dh written per chunk, [d][n]. 256 blocks at two an SM fill
+//    the card in one wave at the training shapes; splitting a row's state
+//    across blocks gained nothing (the SM's throughput, not the chain,
+//    bounds it), and a kernel a stage (the chunk-local products in
+//    parallel, then elementwise recurrences) moved 1.07 GB more.
+// 3. ssd_bwd_main_kernel, one block per (row, chunk), 8,192 blocks at the
+//    training shapes, two an SM (115,328 bytes of shared memory, registers
+//    capped at 128): L formed once in shared memory (one expf an entry),
+//    then the chunk's products in three two-phase block products, each
+//    output one accumulator over both phases: d(x·dt) = exp(cs[-1] - cs) ∘
+//    (B dh) + (C Bᵀ ∘ L)ᵀ dy, whose C Bᵀ slabs are scaled by L as they
+//    land; dM, turned in place into dM ∘ L with the row and column sums of
+//    dM ∘ C Bᵀ ∘ L; dB; dC, which reads dM ∘ L with k fastest where dB
+//    reads it k-major; then the reverse cumsum as a warp scan into ddt
+//    and the chunk's part of dA. dB and dC are written per row.
+// 4. ssd_bwd_reduce_kernel: dA summed over the chunks, dB and dC over a
 //    group's rows, each in a fixed order.
-// Every product is a pass of register micro-tiles (8 x 4 or 16 x 4 outputs
-// a thread, column tiles fastest across a warp, so a warp's row operand is
-// one broadcast and its column operand one float4 a lane): each step of k
-// loads R/4 + 1 float4s from shared memory for 4R FMAs. Operands in device
-// memory are staged 16 rows of k at a time by cp.async into two slots, the
-// next slab landing while the current one is used: 16-byte copies of
-// k-major rows, 4-byte ones where the operand is stored with k fastest
-// (the copy transposes it); a slab that needs scaling (x·dt·exp(cs[-1] -
-// cs), exp(cs) ∘ dy, C Bᵀ ∘ L) is scaled in place by the threads that
-// copied it once their copies have landed, so no expf is inside a k-loop.
-// Slab rows are padded to 4 floats past a multiple of 16 (4 mod 32) so
-// that the transposing copies meet at most two to a bank. Sums over a
-// micro-tile's row or column go to shared memory per tile and are added
-// in tile order.
+// A product is an mma.sync m16n8k8 TF32 pass: a warp takes 32 x 32 outputs
+// (2 m-tiles of 16 rows by 4 n-tiles of 8 columns; at two blocks an SM a
+// 64 x 32 tile spilled), its m-tiles folded so that a warp pairs rows at
+// the chunk's start with rows at its end and the causal products give
+// every warp the same work, and the causal bounds are kept per m-tile.
+// Operands in device memory are staged by cp.async in slabs of 16 k, in
+// their own layout (16-byte copies either way): [k][i] rows 8 mod 32
+// floats long where the operand is stored k-major, [i][k] rows of 20
+// floats where it is stored with k fastest, both free of bank conflicts
+// for the fragment loads. The main kernel keeps one slab in flight while
+// it uses another, the states kernel three. A slab that needs scaling
+// (x·dt·exp(cs[-1] - cs), exp(cs) ∘ dy, C Bᵀ ∘ L) is scaled in place by
+// the threads that copied it once their copies have landed, so no expf is
+// inside a k-loop. A row's sums over a tile's columns go over the quad by
+// shuffles, and over the tiles in tile order through shared memory.
 //
-// Arithmetic: fp32 FMAs on the CUDA cores (no tensor cores, no TF32, no
-// fast-math exp), every output of a product one fmaf chain in increasing
-// k; no atomics, so two calls on the same inputs give the same bits. The
-// plain version sums in another order, so the two agree to a tolerance
-// (stated where they are compared). The main path's shapes (Q 128, hd 64,
-// ds 128) get instantiations with them fixed at compile time; other shapes
-// take the generic ones.
+// Arithmetic: 3xTF32, each operand split as hi = tf32(a) and lo = tf32(a -
+// hi), and lo·hi + hi·lo + hi·hi accumulated in fp32 (lo·lo dropped): about
+// fp32's accuracy (the tolerance against the plain version is unchanged).
+// No atomics, so two calls on the same inputs give the same bits. The main
+// path's shapes (Q 128, hd 64, ds 128) get instantiations with them fixed
+// at compile time; other shapes take the generic ones.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileK = 16;  // k rows of a staged slab
-constexpr int kPartials = kThreads * 16 + kThreads * 4;  // per-tile sums
+constexpr int kTileK = 16;  // k of a staged slab
+constexpr int kRowStride = kTileK + 4;  // of a slab stored [i][k]
+constexpr int kEdge = 64;   // warp tiles cover whole multiples of it
+// per-warp-tile row and column sums of an epilogue
+constexpr int kPartials = kWarps * kEdge + kWarps * kEdge;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int round_up(int a, int b) { return cdiv(a, b) * b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // Row stride of a staged slab, or of the resident Q x Q matrix, holding m
-// columns: room for 16-row micro-tiles past the edge, 4 mod 32 floats.
-__host__ __device__ inline int slab_width(int m) { return round_up(m, 16) + 4; }
+// columns: room for whole warp tiles past the edge, 8 mod 32 floats so
+// that a warp's fragment loads (8 rows of k apart by the stride, 4 columns
+// apart by one float) fall in 32 distinct banks.
+__host__ __device__ inline int slab_width(int m) {
+  return round_up(m, kEdge) + 8;
+}
 
-// The two slots of staged slabs, or the per-tile sums of an epilogue,
-// whichever is larger (they are never in use at once).
-__host__ __device__ inline int ring_floats(int Q, int hd, int ds) {
-  const int w = slab_width(imax(Q, imax(hd, ds)));
-  return imax(2 * kTileK * 2 * w, kPartials);
+// A staged slab of an operand with m rows or columns: [k][i] (kTileK rows
+// of slab_width(m)) for an operand stored k-major, [i][k] (rows of
+// kRowStride, 4 mod 32 floats: a warp's fragment loads, 8 rows apart by the
+// stride and 4 k apart by one float, fall in 32 distinct banks) for one
+// stored with k fastest.
+__host__ __device__ inline int slab_floats(int m) {
+  return imax(kTileK * slab_width(m), round_up(m, kEdge) * kRowStride);
+}
+
+// Slots of staged slabs (an A and a B slab each) in a kernel's ring: the
+// main kernel keeps two, so that two of its blocks fit an SM beside their
+// Q x Q matrices; the states kernel, one block a row walking the row's
+// chunks, four, three slabs in flight to hide device memory's latency.
+constexpr int kMainStages = 2;
+constexpr int kStatesStages = 4;
+
+// The slots of staged slabs, or the per-tile sums of an epilogue, whichever
+// is larger (they are never in use at once).
+__host__ __device__ inline int ring_floats(int Q, int hd, int ds,
+                                           int stages) {
+  return imax(stages * 2 * slab_floats(imax(Q, imax(hd, ds))), kPartials);
 }
 
 // The main kernel's shared memory, in floats: the Q x Q matrix X (L, then
-// dM ∘ L, then its transpose), the ring, and the chunk's vectors. Every
-// array starts on a 16-byte boundary.
+// dM ∘ L; zero past Q up to whole warp tiles), the ring, and the chunk's
+// vectors. Every array starts on a 16-byte boundary.
 struct MainSmem {
   int xw, qp;
-  int X, ring, dts, cs, ecs, dout, drow, dcol, dce, gd, dtx, dcs, rev, red,
-      total;
+  int X, ring, dts, cs, ecs, dout, drow, dcol, dce, gd, dtx, red, total;
   __host__ __device__ MainSmem(int Q, int hd, int ds) {
     xw = slab_width(Q);
     qp = round_up(Q, 4);
     X = 0;
-    ring = X + Q * xw;
-    dts = ring + ring_floats(Q, hd, ds);
+    ring = X + round_up(Q, kEdge) * xw;
+    dts = ring + ring_floats(Q, hd, ds, kMainStages);
     cs = dts + qp;
     ecs = cs + qp;
     dout = ecs + qp;
@@ -128,20 +151,18 @@ struct MainSmem {
     dce = dcol + qp;
     gd = dce + qp;
     dtx = gd + qp;
-    dcs = dtx + qp;
-    rev = dcs + qp;
-    red = rev + qp;
+    red = dtx + qp;
     total = red + 32;
   }
 };
 
-// The local kernel's: the ring and the chunk's vectors.
-struct LocalSmem {
+// The states kernel's: the ring and the chunk's vectors.
+struct StatesSmem {
   int qp, ring, dts, cs, ecs, dout, total;
-  __host__ __device__ LocalSmem(int Q, int hd, int ds) {
+  __host__ __device__ StatesSmem(int Q, int hd, int ds) {
     qp = round_up(Q, 4);
     ring = 0;
-    dts = ring_floats(Q, hd, ds);
+    dts = ring_floats(Q, hd, ds, kStatesStages);
     cs = dts + qp;
     ecs = cs + qp;
     dout = ecs + qp;
@@ -152,11 +173,11 @@ struct LocalSmem {
 size_t main_smem_bytes(int Q, int hd, int ds) {
   return sizeof(float) * (size_t)MainSmem(Q, hd, ds).total;
 }
-size_t local_smem_bytes(int Q, int hd, int ds) {
-  return sizeof(float) * (size_t)LocalSmem(Q, hd, ds).total;
+size_t states_smem_bytes(int Q, int hd, int ds) {
+  return sizeof(float) * (size_t)StatesSmem(Q, hd, ds).total;
 }
 size_t cb_smem_bytes(int Q) {
-  return sizeof(float) * (size_t)(2 * kTileK * 2 * slab_width(Q));
+  return sizeof(float) * (size_t)(kMainStages * 2 * slab_floats(Q));
 }
 
 // Walks e = threadIdx.x, threadIdx.x + kThreads, ... over a row-major range
@@ -178,8 +199,9 @@ struct Walk {
 
 // One float (cp_async) or four (cp_async4, both addresses on 16-byte
 // boundaries) from device memory into shared memory, asynchronously: the
-// copy is visible to the thread after cp_async_wait and to the block after
-// a barrier that follows it.
+// copy is visible to the thread once cp_async_wait<n> has found no more
+// than n of its later groups (cp_async_commit) pending, and to the block
+// after a barrier that follows that.
 __device__ __forceinline__ void cp_async(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
@@ -194,8 +216,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The sum of v over the warp's 32 lanes, in the same order in every lane.
@@ -218,11 +245,11 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// An operand of a block product: element (k, i), k < K, i < n. In device
-// memory at p[k * ld + i] (k-major) or p[i * ld + k] (k fastest), staged a
-// slab at a time; or resident in shared memory, k-major, at res[k * ld +
-// i] (p null). A staged k-major slab may be scaled once it has landed:
-// v·f1[k] (then ·f2[k]), or v·fm[k * fml + i].
+// An operand of a block product: element (k, i), k < K, i < n, at p[k * ld
+// + i] (k-major) or p[i * ld + k] (k fastest): in device memory, staged a
+// slab at a time; or resident in shared memory at res (p null). A staged
+// k-major slab may be scaled once it has landed: v·f1[k] (then ·f2[k]), or
+// v·fm[k * fml + i].
 struct Operand {
   const float* p;
   const float* res;
@@ -249,11 +276,12 @@ __device__ __forceinline__ Operand cols_of(const float* p, int ld) {
   return o;
 }
 
-__device__ __forceinline__ Operand resident(const float* s, int ld) {
+__device__ __forceinline__ Operand resident(const float* s, int ld,
+                                            bool kmajor) {
   Operand o{};
   o.res = s;
   o.ld = ld;
-  o.kmajor = true;
+  o.kmajor = kmajor;
   return o;
 }
 
@@ -263,14 +291,31 @@ __device__ __forceinline__ bool vec_rows(const Operand& o, int n) {
          reinterpret_cast<uintptr_t>(o.p) % 16 == 0;
 }
 
-// slab[k][i] = element (k0 + k, i) of o for k < kn, i < n, as
-// asynchronous copies.
+// The slab of elements (k0 + k, i) of o for k < kn, i < n, as asynchronous
+// copies of o's rows: [k][i] at slab[k * w + i] (o k-major), else [i][k]
+// at slab[i * kRowStride + k]. The k from kn up to a multiple of 8 (the
+// products' step) are set to 0.
 __device__ __forceinline__ void stage(float* slab, int w, const Operand& o,
                                       int n, int k0, int kn) {
-  if (!o.kmajor) {  // a run of kn floats of a row a kn threads
-    for (Walk q(kn); q.r < n; q.next())
-      cp_async(slab + q.c * w + q.r, o.p + (int64_t)q.r * o.ld + k0 + q.c);
-  } else if (vec_rows(o, n)) {
+  const int pad = round_up(kn, 8) - kn;
+  if (!o.kmajor) {
+    if (pad > 0)
+      for (Walk q(pad); q.r < n; q.next())
+        slab[q.r * kRowStride + kn + q.c] = 0.0f;
+    if (kn == kTileK && o.ld % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(o.p) % 16 == 0) {
+      for (Walk q(kTileK / 4); q.r < n; q.next())
+        cp_async4(slab + q.r * kRowStride + 4 * q.c,
+                  o.p + (int64_t)q.r * o.ld + k0 + 4 * q.c);
+    } else {
+      for (Walk q(kn); q.r < n; q.next())
+        cp_async(slab + q.r * kRowStride + q.c,
+                 o.p + (int64_t)q.r * o.ld + k0 + q.c);
+    }
+    return;
+  }
+  for (Walk q(w); q.r < pad; q.next()) slab[(kn + q.r) * w + q.c] = 0.0f;
+  if (vec_rows(o, n)) {
     for (Walk q(n / 4); q.r < kn; q.next())
       cp_async4(slab + q.r * w + 4 * q.c,
                 o.p + (int64_t)(k0 + q.r) * o.ld + 4 * q.c);
@@ -288,7 +333,7 @@ __device__ __forceinline__ float scaled(const Operand& o, int k, int i,
 }
 
 // Scales the entries of a staged k-major slab that this thread copied
-// (the walk of ``stage``), after cp_async_wait.
+// (the walk of ``stage``), once they have landed.
 __device__ __forceinline__ void finish(float* slab, int w, const Operand& o,
                                        int n, int k0, int kn) {
   if (!o.f1 && !o.fm) return;
@@ -311,138 +356,307 @@ __device__ __forceinline__ void finish(float* slab, int w, const Operand& o,
   }
 }
 
-// acc[r][c] = fmaf(a[k * lda + r], b[k * ldb + c], acc[r][c]) for k = 0 ..
-// kn - 1 in order: one serial FMA chain per output. a and b lie on 16-byte
-// boundaries and lda, ldb are multiples of 4, so a step of k is R/4 + C/4
-// float4 loads from shared memory for R * C FMAs.
-template <int R, int C>
-__device__ __forceinline__ void micro_mma(const float* a, int lda,
-                                          const float* b, int ldb, int kn,
-                                          float (&acc)[R][C]) {
-#pragma unroll 2
-  for (int k = 0; k < kn; ++k) {
-    float av[R], bv[C];
-#pragma unroll
-    for (int i = 0; i < R; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(a + k * lda + i);
-      av[i] = v.x; av[i + 1] = v.y; av[i + 2] = v.z; av[i + 3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < C; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(b + k * ldb + i);
-      bv[i] = v.x; bv[i + 1] = v.y; bv[i + 2] = v.z; bv[i + 3] = v.w;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-  }
+// A float as TF32 (round to nearest, ties away), in a 32-bit register.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-template <int R, int C>
-__device__ __forceinline__ void zero(float (&acc)[R][C]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
+// x = hi + lo to about 22 bits: hi = tf32(x), lo = tf32(x - hi).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
-// Which k a micro-tile at rows r0.., columns c0.. sums over: all; k >= r0
-// (an operand zero for k below the row); k < r0 + R (zero above it); or
-// none when the tile lies wholly above the diagonal (a causal output).
+// c += a b on the tensor cores: a 16 x 8 (row-major fragment), b 8 x 8
+// (column-major), c 16 x 8, fp32 accumulation. Lane l = 4 g + t holds a at
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), b at (t, g), (t + 4, g),
+// and c at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Which k a 16-row m-tile at row r sums over: all; k >= r (an operand zero
+// for k below the row); k < r + 16 (zero above it); or, for an 8-column
+// n-tile at column c, none when c > r + 15 (a causal output, which is 0
+// above the diagonal).
 enum KRange { kAll, kFromRow, kToRow, kLower };
 
-// out[m][n] = sum over k < K of A(k, m) B(k, n) for m < M, n < N, as R x C
-// micro-tiles, one a thread in passes of kThreads tiles (the column tile
-// fastest), each output one fmaf chain in increasing k over the tile's
-// k range. The staged operands stream through the ring's two slots, a slab
-// of kTileK rows of k landing while the previous one is used. Then
-// epi(p, r0, c0, acc) for each live tile (p: its index in the pass), a
-// barrier, post(m0, tc) by every thread (m0: the pass's first tile, tc:
-// tiles a row), a barrier. Every thread must call it.
-template <int R, int C, typename Epi, typename Post>
-__device__ __forceinline__ void block_product(int M, int N, int K,
-                                              const Operand& A,
-                                              const Operand& B, int mode,
-                                              float* ring, Epi&& epi,
-                                              Post&& post) {
+// One product of a block_product: sum over k < K of A(k, m) B(k, n), the
+// k of an m-tile limited by ``mode``.
+struct Phase {
+  int K;
+  Operand A, B;
+  int mode;
+};
+
+// The m-tile (16 rows) at position p of the folded order 0, n - 1, 1,
+// n - 2, ... of n m-tiles, and the position of m-tile u. A warp takes MT
+// consecutive positions, so that its rows pair the chunk's start with its
+// end and the causal products give every warp the same work.
+__device__ __forceinline__ int unfold(int p, int n) {
+  return p % 2 == 0 ? p / 2 : n - 1 - p / 2;
+}
+__device__ __forceinline__ int fold(int u, int n) {
+  return u < (n + 1) / 2 ? 2 * u : 2 * (n - 1 - u) + 1;
+}
+
+// Where a lane's accumulators of a warp tile lie: m-tile mt's first row,
+// the tile's first column, and the lane's place in its fragments.
+template <int MT>
+struct Frag {
+  int rows[MT];
+  int c0, g, t;
+  // the row of acc[mt][.][2h + e], the column of acc[.][nt][2h + e]
+  __device__ int row(int mt, int h) const { return rows[mt] + g + 8 * h; }
+  __device__ int col(int nt) const { return c0 + 8 * nt + 2 * t; }
+};
+
+// The sum of v over a quad (the 4 lanes that share g), and over the 8
+// lanes that share t; the same order in every lane.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// A mid step that does nothing.
+struct NoMid {
+  template <typename F, typename T>
+  __device__ void operator()(const F&, T&) const {}
+};
+
+// out[m][n] = P1(m, n), then mid, then + P2(m, n), for m < M, n < N, on
+// the tensor cores in 3xTF32: each operand split as hi + lo, and lo·hi +
+// hi·lo + hi·hi accumulated in fp32 (lo·lo dropped). A warp takes a tile
+// of MT m-tiles (16 rows, in the folded order) by NT n-tiles (8 columns),
+// in passes of kWarps tiles (n fastest). mid(f, acc) runs on each live
+// tile between the phases. The staged operands of both phases stream
+// through the ring's STAGES slots, slabs of kTileK rows of k, STAGES - 1
+// of them in flight while one is used. Then epi(p, f, acc) on each live
+// tile (p: its
+// index in the pass), a barrier, post(m0, tn) by every thread (m0: the
+// pass's first tile, tn: tiles a row), a barrier. Every thread must call
+// it; mid and epi run on whole warps.
+template <int MT, int NT, int STAGES, typename Mid, typename Epi,
+          typename Post>
+__device__ __forceinline__ void block_product2(int M, int N, const Phase& P1,
+                                               const Phase& P2, float* ring,
+                                               Mid&& mid, Epi&& epi,
+                                               Post&& post) {
+  constexpr int WM = 16 * MT, WN = 8 * NT;
   const int wa = slab_width(M), wb = slab_width(N);
-  const int slot = kTileK * (wa + wb);
-  const int tc = cdiv(N, C), tiles = cdiv(M, R) * tc;
-  const int nk = cdiv(K, kTileK);
-  const auto slab = [&](int i) { return ring + (i & 1) * slot; };
+  const int sa = slab_floats(M), slot = sa + slab_floats(N);
+  const int tn = cdiv(N, WN), tm = cdiv(M, WM), tiles = tm * tn;
+  const int n1 = cdiv(P1.K, kTileK), nk = n1 + cdiv(P2.K, kTileK);
+  const int lane = threadIdx.x & 31;
+  const auto slab = [&](int i) { return ring + (i % STAGES) * slot; };
+  // each use of a phase names P1 or P2 itself, so that both stay in
+  // registers (a reference chosen at run time would put them in memory)
   const auto stage_slab = [&](int i) {
-    const int k0 = i * kTileK, kn = min(kTileK, K - k0);
-    if (A.p) stage(slab(i), wa, A, M, k0, kn);
-    if (B.p) stage(slab(i) + kTileK * wa, wb, B, N, k0, kn);
+    const auto go = [&](const Phase& P, int k0) {
+      const int kn = min(kTileK, P.K - k0);
+      if (P.A.p) stage(slab(i), wa, P.A, M, k0, kn);
+      if (P.B.p) stage(slab(i) + sa, wb, P.B, N, k0, kn);
+    };
+    if (i < n1)
+      go(P1, i * kTileK);
+    else
+      go(P2, (i - n1) * kTileK);
   };
   const auto finish_slab = [&](int i) {
-    const int k0 = i * kTileK, kn = min(kTileK, K - k0);
-    if (A.p) finish(slab(i), wa, A, M, k0, kn);
-    if (B.p) finish(slab(i) + kTileK * wa, wb, B, N, k0, kn);
+    const auto go = [&](const Phase& P, int k0) {
+      const int kn = min(kTileK, P.K - k0);
+      if (P.A.p) finish(slab(i), wa, P.A, M, k0, kn);
+      if (P.B.p) finish(slab(i) + sa, wb, P.B, N, k0, kn);
+    };
+    if (i < n1)
+      go(P1, i * kTileK);
+    else
+      go(P2, (i - n1) * kTileK);
   };
-  for (int m0 = 0; m0 < tiles; m0 += kThreads) {
-    const int m = m0 + threadIdx.x;
-    const bool live = m < tiles;
-    const int r0 = (m / tc) * R, c0 = (m % tc) * C;
-    int lo = 0, hi = K;
-    if (mode == kFromRow) lo = r0;
-    if (mode == kToRow) hi = min(K, r0 + R);
-    if (mode == kLower && c0 > r0 + R - 1) hi = 0;
-    float acc[R][C];
-    zero(acc);
-    if (nk > 0) {
-      stage_slab(0);
-      cp_async_wait();
-      finish_slab(0);
-    }
-    __syncthreads();
-    for (int i = 0; i < nk; ++i) {
-      if (i + 1 < nk) stage_slab(i + 1);
-      const int k0 = i * kTileK, kn = min(kTileK, K - k0);
-      const int ka = max(k0, lo), kb = min(k0 + kn, hi);
-      if (live && ka < kb) {
-        const float* a = A.p ? slab(i) + (ka - k0) * wa + r0
-                             : A.res + ka * A.ld + r0;
-        const float* b = B.p ? slab(i) + kTileK * wa + (ka - k0) * wb + c0
-                             : B.res + ka * B.ld + c0;
-        micro_mma<R, C>(a, A.p ? wa : A.ld, b, B.p ? wb : B.ld, kb - ka, acc);
+  for (int m0 = 0; m0 < tiles; m0 += kWarps) {
+    const int wt = m0 + (threadIdx.x >> 5);
+    const bool live = wt < tiles;
+    Frag<MT> f;
+    f.g = lane >> 2;
+    f.t = lane & 3;
+    f.c0 = (wt % tn) * WN;
+    int rmin = M, rmax = -16;  // of the m-tiles inside M
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      f.rows[mt] = 16 * unfold((wt / tn) * MT + mt, tm * MT);
+      if (f.rows[mt] < M) {
+        rmin = min(rmin, f.rows[mt]);
+        rmax = max(rmax, f.rows[mt]);
       }
-      cp_async_wait();
-      if (i + 1 < nk) finish_slab(i + 1);
-      __syncthreads();
     }
-    if (live) epi(m - m0, r0, c0, acc);
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    // slab i of phase P (first k k0) into the accumulators
+    const auto compute = [&](const Phase& P, int i, int k0) {
+      if (!live) return;
+      const int kn = min(kTileK, P.K - k0);
+      int k_lo = k0, k_hi = k0 + round_up(kn, 8);
+      if (P.mode == kFromRow) k_lo = max(k_lo, rmin);
+      if (P.mode == kToRow) k_hi = min(k_hi, rmax + 16);
+      // element (k, i) of A at a_base[(k - a_k0) * lda + i] (k-major) or
+      // a_base[i * lda + k - a_k0], the same for B
+      const float* a_base = P.A.p ? slab(i) : P.A.res;
+      const int a_k0 = P.A.p ? k0 : 0;
+      const int lda = !P.A.p ? P.A.ld : P.A.kmajor ? wa : kRowStride;
+      const float* b_base = P.B.p ? slab(i) + sa : P.B.res;
+      const int b_k0 = P.B.p ? k0 : 0;
+      const int ldb = !P.B.p ? P.B.ld : P.B.kmajor ? wb : kRowStride;
+      for (int k = k_lo; k < k_hi; k += 8) {
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int n = f.c0 + 8 * nt + f.g;
+          const float* b = P.B.kmajor ? b_base + (k - b_k0 + f.t) * ldb + n
+                                      : b_base + n * ldb + k - b_k0 + f.t;
+          const int b4 = P.B.kmajor ? 4 * ldb : 4;
+          split(b[0], bh[nt][0], bl[nt][0]);
+          split(b[b4], bh[nt][1], bl[nt][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int r = f.rows[mt];
+          if (r >= M || (P.mode == kFromRow && k < r) ||
+              (P.mode == kToRow && k >= r + 16))
+            continue;
+          const int m = r + f.g;
+          const float* a = P.A.kmajor ? a_base + (k - a_k0 + f.t) * lda + m
+                                      : a_base + m * lda + k - a_k0 + f.t;
+          const int a4 = P.A.kmajor ? 4 * lda : 4;
+          const int a8 = P.A.kmajor ? 8 : 8 * lda;
+          uint32_t ah[4], al[4];
+          split(a[0], ah[0], al[0]);
+          split(a[a8], ah[1], al[1]);
+          split(a[a4], ah[2], al[2]);
+          split(a[a4 + a8], ah[3], al[3]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (P.mode == kLower && f.c0 + 8 * nt > r + 15) continue;
+            mma_tf32(acc[mt][nt], al, bh[nt]);
+            mma_tf32(acc[mt][nt], ah, bl[nt]);
+            mma_tf32(acc[mt][nt], ah, bh[nt]);
+          }
+        }
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < nk) stage_slab(i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < nk; ++i) {
+      cp_async_wait<STAGES - 2>();  // this thread's copies of slab i
+      finish_slab(i);
+      // slab i is in everywhere, and every warp is done with slab i - 1,
+      // whose slot slab i + STAGES - 1 takes
+      __syncthreads();
+      if (i + STAGES - 1 < nk) stage_slab(i + STAGES - 1);
+      cp_async_commit();
+      if (i < n1)
+        compute(P1, i, i * kTileK);
+      else
+        compute(P2, i, (i - n1) * kTileK);
+      if (i == n1 - 1 && live) mid(f, acc);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the epilogue's sums
+    if (live) epi(wt - m0, f, acc);
     __syncthreads();
-    post(m0, tc);
+    post(m0, tn);
     __syncthreads();
   }
 }
 
-// Sums, for each q < n, the per-tile sums part[p * per + q % per] of the
-// pass's tiles that hold q as a row (rows: tiles (q / per, 0 .. tc - 1)) or
-// as a column (tiles (0 .., q / per)), in tile order, into out[q].
-__device__ __forceinline__ void add_row_sums(const float* part, int per,
-                                             int n, int m0, int tc,
-                                             float* out) {
+template <int MT, int NT, int STAGES, typename Epi, typename Post>
+__device__ __forceinline__ void block_product(int M, int N, const Phase& P,
+                                              float* ring, Epi&& epi,
+                                              Post&& post) {
+  block_product2<MT, NT, STAGES>(M, N, P, Phase{}, ring, NoMid{}, epi, post);
+}
+
+// p[c], p[c + 1] of a row of n floats: one 8-byte access where both lie in
+// the row and on an 8-byte boundary, else one a float (0 past n).
+__device__ __forceinline__ float2 load2(const float* p, int c, int n) {
+  if (c + 1 < n && reinterpret_cast<uintptr_t>(p + c) % 8 == 0)
+    return *reinterpret_cast<const float2*>(p + c);
+  float2 v;
+  v.x = c < n ? p[c] : 0.0f;
+  v.y = c + 1 < n ? p[c + 1] : 0.0f;
+  return v;
+}
+
+// a[0], a[1] of the columns c, c + 1 of a tile, 0 for a column past n (an
+// accumulator there holds whatever a slab held past an operand's edge)
+__device__ __forceinline__ float2 within(const float* a, int c, int n) {
+  float2 v;
+  v.x = c < n ? a[0] : 0.0f;
+  v.y = c + 1 < n ? a[1] : 0.0f;
+  return v;
+}
+
+__device__ __forceinline__ void store2(float* p, int c, int n, float x,
+                                       float y) {
+  if (c + 1 < n && reinterpret_cast<uintptr_t>(p + c) % 8 == 0) {
+    float2 v;
+    v.x = x;
+    v.y = y;
+    *reinterpret_cast<float2*>(p + c) = v;
+    return;
+  }
+  if (c < n) p[c] = x;
+  if (c + 1 < n) p[c + 1] = y;
+}
+
+// Sums, for each q < n, the per-warp-tile sums of the pass's tiles that
+// hold q, in tile order, into out[q]: as a row, part[p * WM + (the row's
+// place in its tile)] over the tn tiles of its row of tiles; as a column,
+// part[p * WN + q % WN] over the tm tiles of its column of tiles.
+template <int MT>
+__device__ __forceinline__ void add_row_sums(const float* part, int n,
+                                             int m0, int tn, float* out) {
+  const int mts = cdiv(n, 16 * MT) * MT;
   for (int q = threadIdx.x; q < n; q += kThreads) {
+    const int pos = fold(q / 16, mts);
+    const int lr = (pos % MT) * 16 + q % 16;
     float v = 0.0f;
-    for (int ct = 0; ct < tc; ++ct) {
-      const int p = (q / per) * tc + ct - m0;
-      if (p >= 0 && p < kThreads) v += part[p * per + q % per];
+    for (int ct = 0; ct < tn; ++ct) {
+      const int p = (pos / MT) * tn + ct - m0;
+      if (p >= 0 && p < kWarps) v += part[p * 16 * MT + lr];
     }
     out[q] += v;
   }
 }
 
-__device__ __forceinline__ void add_col_sums(const float* part, int per,
-                                             int n, int rows, int m0,
-                                             int tc, float* out) {
+template <int WN>
+__device__ __forceinline__ void add_col_sums(const float* part, int n,
+                                             int tm, int m0, int tn,
+                                             float* out) {
   for (int q = threadIdx.x; q < n; q += kThreads) {
     float v = 0.0f;
-    for (int rt = 0; rt < rows; ++rt) {
-      const int p = rt * tc + q / per - m0;
-      if (p >= 0 && p < kThreads) v += part[p * per + q % per];
+    for (int rt = 0; rt < tm; ++rt) {
+      const int p = rt * tn + q / WN - m0;
+      if (p >= 0 && p < kWarps) v += part[p * WN + q % WN];
     }
     out[q] += v;
   }
@@ -454,8 +668,7 @@ struct NoPost {
 };
 
 // C Bᵀ of one chunk of one group, one block per (group, chunk): cb[t][s] =
-// sum_n C[t][n] B[s][n] for s <= t (one fmaf chain in increasing n, as the
-// forward's pre-pass takes it), 0 above the diagonal.
+// sum_n C[t][n] B[s][n] for s <= t, 0 above the diagonal.
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
                   int Q, int ds, float* __restrict__ cb) {
@@ -464,122 +677,136 @@ ssd_bwd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
   const float* Bc = Bm + gc * Q * ds;
   const float* Cc = Cm + gc * Q * ds;
   float* out = cb + gc * Q * Q;
-  block_product<16, 4>(
-      Q, Q, ds, cols_of(Cc, ds), cols_of(Bc, ds), kLower, smem,
-      [&](int, int r0, int c0, float (&acc)[16][4]) {
+  block_product<2, 4, kMainStages>(
+      Q, Q, Phase{ds, cols_of(Cc, ds), cols_of(Bc, ds), kLower}, smem,
+      [&](int, const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int t = r0 + i, s = c0 + j;
-            if (t < Q && s < Q) out[t * Q + s] = s <= t ? acc[i][j] : 0.0f;
+          for (int h = 0; h < 2; ++h) {
+            const int t = f.row(mt, h);
+            if (t >= Q) continue;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int s = f.col(nt);
+              store2(out + t * Q, s, Q, s <= t ? acc[mt][nt][2 * h] : 0.0f,
+                     s + 1 <= t ? acc[mt][nt][2 * h + 1] : 0.0f);
+            }
           }
       },
       NoPost{});
 }
 
-// Per (row, chunk): cs into scratch (and exp(cs[-1])), the chunk-local
-// state into the slot of the state entering chunk c + 1, the chunk-local
-// gradient into the slot of dh leaving chunk c - 1; both [d][n]. A nonzero
-// kQ, kHd or kDs fixes Q, hd or ds at compile time.
+// Per row, over its chunks: cs = cumsum(dt·A) of every chunk into scratch,
+// one lane a chunk, each in the forward's order, and exp(cs[-1]); then the
+// states entering the chunks, h_in[0] = 0 and h_in[c + 1] = h_in[c]·
+// exp(cs_c[-1]) + Bᵀ((x·dt) ∘ exp(cs_c[-1] - cs_c)) (the forward's
+// arithmetic, with the chunk-local product on the tensor cores), and dh
+// leaving them, dh[nc - 1] = dh_final or 0 and dh[c - 1] = exp(cs_c[-1])·
+// dh[c] + Cᵀ(exp(cs_c) ∘ dy_c). Both are (hd, ds), [d][n], each chunk's
+// read back by the threads that need it for the next. A nonzero kQ, kHd or
+// kDs fixes Q, hd or ds at compile time.
 template <int kQ, int kHd, int kDs>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_bwd_local_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ A,
-                     const float* __restrict__ Bm,
-                     const float* __restrict__ Cm,
-                     const float* __restrict__ dy, int nc, int Q_, int hd_,
-                     int ds_, int heads_per_group, float* __restrict__ cs_out,
-                     float* __restrict__ seg_out, float* __restrict__ hs,
-                     float* __restrict__ dhs) {
+ssd_bwd_states_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ Cm,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ dh_final, int nc, int Q_,
+                      int hd_, int ds_, int heads_per_group,
+                      float* __restrict__ cs_out, float* __restrict__ seg_out,
+                      float* __restrict__ hs, float* __restrict__ dhs) {
   extern __shared__ __align__(16) float smem[];
   const int Q = kQ ? kQ : Q_, hd = kHd ? kHd : hd_, ds = kDs ? kDs : ds_;
-  const LocalSmem L(Q, hd, ds);
-  const int64_t row = blockIdx.x;  // bh * nc + c
-  const int bh = (int)(row / nc), c = (int)(row % nc);
-  const int64_t grow = (int64_t)(bh / heads_per_group) * nc + c;
+  const StatesSmem L(Q, hd, ds);
+  const int bh = blockIdx.x;
+  const int64_t g = bh / heads_per_group;
   const int64_t hds = (int64_t)hd * ds;
   float* ring = smem + L.ring;
   float* dts = smem + L.dts;
   float* cs = smem + L.cs;
   float* ecs = smem + L.ecs;
   float* dout = smem + L.dout;
+  float* h_row = hs + (int64_t)bh * nc * hds;
+  float* g_row = dhs + (int64_t)bh * nc * hds;
   const float a = A[bh];
-  for (int q = threadIdx.x; q < Q; q += kThreads) dts[q] = dt[row * Q + q];
-  __syncthreads();
-  if (threadIdx.x == 0) {  // the forward's order
-    float run = 0.0f;
-    for (int q = 0; q < Q; ++q) {
-      run = __fadd_rn(run, __fmul_rn(dts[q], a));
-      cs[q] = run;
-      cs_out[row * Q + q] = run;
+  if (threadIdx.x < 32)
+    for (int c = threadIdx.x; c < nc; c += 32) {
+      const int64_t row = (int64_t)bh * nc + c;
+      float run = 0.0f;
+      for (int q = 0; q < Q; ++q) {
+        run = __fadd_rn(run, __fmul_rn(dt[row * Q + q], a));
+        cs_out[row * Q + q] = run;
+      }
+      seg_out[row] = expf(run);
     }
-    seg_out[row] = expf(run);
+  for (int64_t e = threadIdx.x; e < hds; e += kThreads) {
+    h_row[e] = 0.0f;
+    g_row[(nc - 1) * hds + e] =
+        dh_final ? dh_final[bh * hds + (e % ds) * hd + e / ds] : 0.0f;
   }
   __syncthreads();
-  const float last = cs[Q - 1];
-  for (int q = threadIdx.x; q < Q; q += kThreads) {
-    ecs[q] = expf(cs[q]);
-    dout[q] = expf(last - cs[q]);
-  }
-  __syncthreads();
-  const float* Bc = Bm + grow * Q * ds;
-  const float* Cc = Cm + grow * Q * ds;
-  const auto store = [&](float* out) {
-    return [=](int, int r0, int c0, float (&acc)[8][4]) {
+  // chunk c's dt, cs, exp(cs) and exp(cs[-1] - cs); returns exp(cs[-1])
+  const auto prologue = [&](int c) {
+    const int64_t row = (int64_t)bh * nc + c;
+    for (int q = threadIdx.x; q < Q; q += kThreads) {
+      dts[q] = dt[row * Q + q];
+      cs[q] = cs_out[row * Q + q];
+    }
+    __syncthreads();
+    const float last = cs[Q - 1];
+    for (int q = threadIdx.x; q < Q; q += kThreads) {
+      ecs[q] = expf(cs[q]);
+      dout[q] = expf(last - cs[q]);
+    }
+    __syncthreads();
+    return seg_out[row];
+  };
+  // out = in·seg + acc (fmaf when fused), one element each
+  const auto carry = [&](const float* in, float* out, float seg, bool fused) {
+    return [=](int, const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (r0 + i < hd && c0 + j < ds)
-            out[(r0 + i) * ds + c0 + j] = acc[i][j];
+        for (int h = 0; h < 2; ++h) {
+          const int d = f.row(mt, h);
+          if (d >= hd) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int n = f.col(nt);
+            const float2 v = load2(in + d * ds, n, ds);
+            const float* s = acc[mt][nt] + 2 * h;
+            store2(out + d * ds, n, ds,
+                   fused ? fmaf(seg, v.x, s[0])
+                         : __fadd_rn(__fmul_rn(v.x, seg), s[0]),
+                   fused ? fmaf(seg, v.y, s[1])
+                         : __fadd_rn(__fmul_rn(v.y, seg), s[1]));
+          }
+        }
     };
   };
-  if (c + 1 < nc) {  // Bᵀ((x·dt) ∘ exp(cs[-1] - cs)), as [d][n]
+  for (int c = 0; c + 1 < nc; ++c) {  // h_in[c + 1]
+    const float seg = prologue(c);
+    const int64_t row = (int64_t)bh * nc + c;
     Operand xo = rows_of(x + row * Q * hd, hd);
     xo.f1 = dts;
     xo.f2 = dout;
-    block_product<8, 4>(hd, ds, Q, xo, rows_of(Bc, ds), kAll, ring,
-                        store(hs + (row + 1) * hds), NoPost{});
+    block_product<2, 4, kStatesStages>(
+        hd, ds, Phase{Q, xo, rows_of(Bm + (g * nc + c) * Q * ds, ds), kAll},
+        ring, carry(h_row + c * hds, h_row + (c + 1) * hds, seg, false),
+        NoPost{});
   }
-  if (c > 0) {  // Cᵀ(exp(cs) ∘ dy), as [d][n]
+  for (int c = nc - 1; c > 0; --c) {  // dh[c - 1]
+    const float seg = prologue(c);
+    const int64_t row = (int64_t)bh * nc + c;
     Operand yo = rows_of(dy + row * Q * hd, hd);
     yo.f1 = ecs;
-    block_product<8, 4>(hd, ds, Q, yo, rows_of(Cc, ds), kAll, ring,
-                        store(dhs + (row - 1) * hds), NoPost{});
-  }
-}
-
-// One thread per (row, state element e): the states entering the chunks,
-// h_in[0] = 0, h_in[c] = h_in[c-1]·exp(cs_{c-1}[-1]) + local[c-1] (the
-// forward's rounding), and dh leaving them, dh[nc-1] = dh_final or 0,
-// dh[c-1] = exp(cs_c[-1])·dh[c] + dlocal[c], in place over the slots the
-// local kernel filled. hs and dhs are (BH, nc, hd, ds); dh_final (BH, ds,
-// hd).
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_carry_kernel(const float* __restrict__ seg,
-                     const float* __restrict__ dh_final, int BH, int nc,
-                     int hd, int ds, float* __restrict__ hs,
-                     float* __restrict__ dhs) {
-  const int64_t hds = (int64_t)hd * ds;
-  const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (int64_t)BH * hds) return;
-  const int64_t bh = idx / hds, e = idx % hds;
-  const float* sg = seg + bh * nc;
-  float* h = hs + bh * nc * hds + e;
-  float* g = dhs + bh * nc * hds + e;
-  float v = 0.0f;
-  h[0] = 0.0f;
-  for (int c = 1; c < nc; ++c) {
-    v = __fadd_rn(__fmul_rn(v, sg[c - 1]), h[c * hds]);
-    h[c * hds] = v;
-  }
-  const int64_t d = e / ds, n = e % ds;
-  float u = dh_final ? dh_final[bh * hds + n * hd + d] : 0.0f;
-  g[(int64_t)(nc - 1) * hds] = u;
-  for (int c = nc - 2; c >= 0; --c) {
-    u = fmaf(sg[c + 1], u, g[c * hds]);
-    g[c * hds] = u;
+    block_product<2, 4, kStatesStages>(
+        hd, ds, Phase{Q, yo, rows_of(Cm + (g * nc + c) * Q * ds, ds), kAll},
+        ring, carry(g_row + c * hds, g_row + (c - 1) * hds, seg, true),
+        NoPost{});
   }
 }
 
@@ -630,193 +857,226 @@ ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float* dce = smem + L.dce;
   float* gd = smem + L.gd;
   float* dtx = smem + L.dtx;
-  float* dcs = smem + L.dcs;
-  float* rev = smem + L.rev;
+  float* dcs = drow;  // d cs once the row and column sums are taken
+  float* rev = dcol;  // its reverse cumsum
   float* red = smem + L.red;
-  float* rowp = ring;                  // per-tile row sums
-  float* colp = ring + kThreads * 16;  // per-tile column sums
+  float* rowp = ring;                 // per-warp-tile row sums
+  float* colp = ring + kWarps * kEdge;  // per-warp-tile column sums
   const float a = A[bh];
   const float seg = seg_in[row];
 
-  // everything starts at 0: X above the diagonal, the padding, the sums
-  for (int e = tid; e < L.total; e += kThreads) smem[e] = 0.0f;
-  __syncthreads();
   for (int q = tid; q < Q; q += kThreads) {
     dts[q] = dt[row * Q + q];
     cs[q] = cs_in[row * Q + q];
   }
+  for (int e = tid; e < L.red - L.drow; e += kThreads) drow[e] = 0.0f;
   __syncthreads();
   const float last = cs[Q - 1];
   for (int q = tid; q < Q; q += kThreads) {
     ecs[q] = expf(cs[q]);
     dout[q] = expf(last - cs[q]);
   }
-  for (Walk w(Q); w.r < Q; w.next())  // X = L, one expf an entry
-    if (w.c <= w.r) X[w.r * xw + w.c] = expf(cs[w.r] - cs[w.c]);
+  // X = L, one expf an entry; 0 above the diagonal and past Q
+  for (Walk w(xw); w.r < round_up(Q, kEdge); w.next())
+    X[w.r * xw + w.c] =
+        w.r < Q && w.c <= w.r ? expf(cs[w.r] - cs[w.c]) : 0.0f;
   __syncthreads();
 
-  // dx = (C Bᵀ ∘ L)ᵀ dy for now: the C Bᵀ slabs scaled by L as they land
+  // du = B dh, then d(x·dt) = exp(cs[-1] - cs) ∘ du + (C Bᵀ ∘ L)ᵀ dy (the
+  // C Bᵀ slabs scaled by L as they land) and dx = dt ∘ d(x·dt); between
+  // the two, through exp(cs[-1] - cs): gd = exp(cs[-1] - cs) ∘ (du · x·dt)
+  // adds to d cs[-1] and takes from d cs_s; dtx = x · d(x·dt). A row's
+  // sums over a warp tile's columns are kept by the quad's lane t = mt.
   {
     Operand cbl = rows_of(cbc, Q);
     cbl.fm = X;
     cbl.fml = xw;
-    block_product<8, 4>(
-        Q, hd, Q, cbl, rows_of(dyc, hd), kFromRow, ring,
-        [&](int, int r0, int c0, float (&acc)[8][4]) {
+    float* gp = ring;
+    float* tp = ring + kWarps * kEdge;
+    float keep[2];
+    block_product2<2, 4, kMainStages>(
+        Q, hd, Phase{ds, cols_of(Bc, ds), cols_of(dhc, ds), kAll},
+        Phase{Q, cbl, rows_of(dyc, hd), kFromRow}, ring,
+        [&](const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+          for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (r0 + i < Q && c0 + j < hd)
-                dxc[(r0 + i) * hd + c0 + j] = acc[i][j];
+            for (int h = 0; h < 2; ++h) {
+              const int s = min(f.row(mt, h), Q - 1);
+              float v = 0.0f;
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                const float2 xv = load2(xc + s * hd, f.col(nt), hd);
+                float* a = acc[mt][nt] + 2 * h;
+                const float2 du = within(a, f.col(nt), hd);
+                v = fmaf(du.x, __fmul_rn(xv.x, dts[s]), v);
+                v = fmaf(du.y, __fmul_rn(xv.y, dts[s]), v);
+                a[0] = __fmul_rn(dout[s], a[0]);
+                a[1] = __fmul_rn(dout[s], a[1]);
+              }
+              v = quad_sum(v);
+              if (f.t == mt) keep[h] = v;
+            }
         },
-        NoPost{});
+        [&](int p, const Frag<2>& f, float (&acc)[2][4][4]) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int s = f.row(mt, h);
+              float u = 0.0f;
+              if (s < Q) {
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) {
+                  const int d = f.col(nt);
+                  const float2 xv = load2(xc + s * hd, d, hd);
+                  const float* a = acc[mt][nt] + 2 * h;
+                  const float2 dxdt = within(a, d, hd);
+                  u = fmaf(xv.x, dxdt.x, u);
+                  u = fmaf(xv.y, dxdt.y, u);
+                  store2(dxc + s * hd, d, hd, __fmul_rn(dts[s], a[0]),
+                         __fmul_rn(dts[s], a[1]));
+                }
+              }
+              u = quad_sum(u);
+              const int lr = p * 32 + mt * 16 + f.g + 8 * h;
+              if (f.t == 0) tp[lr] = u;
+              if (f.t == mt) gp[lr] = keep[h];
+            }
+        },
+        [&](int m0, int tn) {
+          add_row_sums<2>(gp, Q, m0, tn, gd);
+          add_row_sums<2>(tp, Q, m0, tn, dtx);
+        });
   }
 
   // dM = dy (x·dt)ᵀ (causal); X becomes dM ∘ L, and P = dM ∘ L ∘ C Bᵀ adds
   // to d cs_t along its row and takes from d cs_s along its column
-  block_product<16, 4>(
-      Q, Q, hd, cols_of(dyc, hd), cols_of(xc, hd), kLower, ring,
-      [&](int p, int r0, int c0, float (&acc)[16][4]) {
-        float cpart[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  block_product<2, 4, kMainStages>(
+      Q, Q, Phase{hd, cols_of(dyc, hd), cols_of(xc, hd), kLower}, ring,
+      [&](int p, const Frag<2>& f, float (&acc)[2][4][4]) {
+        float cpart[4][2] = {};
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int t = r0 + i;
-          float rpart = 0.0f;
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = c0 + j;
-            if (t < Q && s <= t) {
-              float* xp = X + t * xw + s;
-              const float sv = __fmul_rn(__fmul_rn(acc[i][j], dts[s]), *xp);
-              *xp = sv;
-              const float pv = __fmul_rn(sv, cbc[t * Q + s]);
-              rpart += pv;
-              cpart[j] += pv;
+          for (int h = 0; h < 2; ++h) {
+            const int t = f.row(mt, h);
+            float rpart = 0.0f;
+            if (t < Q) {
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                // L is 0 above the diagonal, and so is every product with
+                // it
+                const int s = f.col(nt);
+                float2* xp = reinterpret_cast<float2*>(X + t * xw + s);
+                float2 l = *xp;
+                const float2 cb2 = load2(cbc + t * Q, s, Q);
+                const float2 dm = within(acc[mt][nt] + 2 * h, s, Q);
+                l.x = __fmul_rn(__fmul_rn(dm.x, dts[min(s, Q - 1)]), l.x);
+                l.y = __fmul_rn(__fmul_rn(dm.y, dts[min(s + 1, Q - 1)]), l.y);
+                *xp = l;
+                const float p0 = __fmul_rn(l.x, cb2.x);
+                const float p1 = __fmul_rn(l.y, cb2.y);
+                rpart += p0;
+                rpart += p1;
+                cpart[nt][0] += p0;
+                cpart[nt][1] += p1;
+              }
             }
+            rpart = quad_sum(rpart);
+            if (f.t == 0) rowp[p * 32 + mt * 16 + f.g + 8 * h] = rpart;
           }
-          rowp[p * 16 + i] = rpart;
-        }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) colp[p * 4 + j] = cpart[j];
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = column_sum(cpart[nt][e]);
+            if (f.g == 0) colp[p * 32 + nt * 8 + 2 * f.t + e] = v;
+          }
       },
-      [&](int m0, int tc) {
-        add_row_sums(rowp, 16, Q, m0, tc, drow);
-        add_col_sums(colp, 4, Q, cdiv(Q, 16), m0, tc, dcol);
+      [&](int m0, int tn) {
+        add_row_sums<2>(rowp, Q, m0, tn, drow);
+        add_col_sums<32>(colp, Q, cdiv(Q, 32), m0, tn, dcol);
       });
 
   // dB = exp(cs[-1] - cs) ∘ ((x·dt) dhᵀ) + (dM ∘ L)ᵀ C, per row
-  block_product<16, 4>(
-      Q, ds, hd, cols_of(xc, hd), rows_of(dhc, ds), kAll, ring,
-      [&](int, int r0, int c0, float (&acc)[16][4]) {
+  block_product2<2, 4, kMainStages>(
+      Q, ds, Phase{hd, cols_of(xc, hd), rows_of(dhc, ds), kAll},
+      Phase{Q, resident(X, xw, true), rows_of(Cc, ds), kFromRow}, ring,
+      [&](const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = r0 + i, n = c0 + j;
-            if (s < Q && n < ds)
-              dBc[s * ds + n] =
-                  __fmul_rn(__fmul_rn(acc[i][j], dts[s]), dout[s]);
+          for (int h = 0; h < 2; ++h) {
+            const int s = min(f.row(mt, h), Q - 1);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& a = acc[mt][nt][2 * h + e];
+                a = __fmul_rn(__fmul_rn(a, dts[s]), dout[s]);
+              }
           }
       },
-      NoPost{});
-  block_product<16, 4>(
-      Q, ds, Q, resident(X, xw), rows_of(Cc, ds), kFromRow, ring,
-      [&](int, int r0, int c0, float (&acc)[16][4]) {
+      [&](int, const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = r0 + i, n = c0 + j;
-            if (s < Q && n < ds) {
-              float* p = dBc + s * ds + n;
-              *p = __fadd_rn(*p, acc[i][j]);
-            }
-          }
-      },
-      NoPost{});
-
-  // X = (dM ∘ L)ᵀ, in place
-  for (Walk w(Q); w.r < Q; w.next())
-    if (w.c > w.r) {
-      float* p = X + w.r * xw + w.c;
-      float* q = X + w.c * xw + w.r;
-      const float v = *p;
-      *p = *q;
-      *q = v;
-    }
-  __syncthreads();
-
-  // dC = exp(cs) ∘ (dy h_inᵀ) + (dM ∘ L) B, per row; the row sums of
-  // C ∘ (dy h_inᵀ) are the exp(cs) term of d cs
-  block_product<16, 4>(
-      Q, ds, hd, cols_of(dyc, hd), rows_of(hc, ds), kAll, ring,
-      [&](int p, int r0, int c0, float (&acc)[16][4]) {
+          for (int h = 0; h < 2; ++h) {
+            const int s = f.row(mt, h);
+            if (s >= Q) continue;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int t = r0 + i;
-          float part = 0.0f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = c0 + j;
-            if (t < Q && n < ds) {
-              part = fmaf(Cc[t * ds + n], acc[i][j], part);
-              dCc[t * ds + n] = __fmul_rn(acc[i][j], ecs[t]);
-            }
-          }
-          rowp[p * 16 + i] = part;
-        }
-      },
-      [&](int m0, int tc) { add_row_sums(rowp, 16, Q, m0, tc, dce); });
-  block_product<16, 4>(
-      Q, ds, Q, resident(X, xw), rows_of(Bc, ds), kToRow, ring,
-      [&](int, int r0, int c0, float (&acc)[16][4]) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int t = r0 + i, n = c0 + j;
-            if (t < Q && n < ds) {
-              float* p = dCc + t * ds + n;
-              *p = __fadd_rn(*p, acc[i][j]);
-            }
+            for (int nt = 0; nt < 4; ++nt)
+              store2(dBc + s * ds, f.col(nt), ds, acc[mt][nt][2 * h],
+                     acc[mt][nt][2 * h + 1]);
           }
       },
       NoPost{});
 
-  // du = B dh; d(x·dt) = dx so far + exp(cs[-1] - cs) ∘ du, dx = dt ∘ it;
-  // through exp(cs[-1] - cs), gd = exp(cs[-1] - cs) ∘ (du · x·dt) adds to
-  // d cs[-1] and takes from d cs_s; dtx = x · d(x·dt). The same tiles as
-  // the first product's, so each thread reads back its own dx.
-  float* gp = ring;
-  float* tp = ring + kThreads * 8;
-  block_product<8, 4>(
-      Q, hd, ds, cols_of(Bc, ds), cols_of(dhc, ds), kAll, ring,
-      [&](int p, int r0, int c0, float (&acc)[8][4]) {
+  // dC = exp(cs) ∘ (dy h_inᵀ) + (dM ∘ L) B, per row; between the two, the
+  // row sums of C ∘ (dy h_inᵀ), the exp(cs) term of d cs
+  {
+    float keep[2];
+    block_product2<2, 4, kMainStages>(
+        Q, ds, Phase{hd, cols_of(dyc, hd), rows_of(hc, ds), kAll},
+        Phase{Q, resident(X, xw, false), rows_of(Bc, ds), kToRow}, ring,
+        [&](const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int s = r0 + i;
-          float g = 0.0f, u = 0.0f;
+          for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int d = c0 + j;
-            if (s < Q && d < hd) {
-              const float xv = xc[s * hd + d];
-              g = fmaf(acc[i][j], __fmul_rn(xv, dts[s]), g);
-              float* dp = dxc + s * hd + d;
-              const float v = fmaf(dout[s], acc[i][j], *dp);
-              *dp = __fmul_rn(dts[s], v);
-              u = fmaf(xv, v, u);
+            for (int h = 0; h < 2; ++h) {
+              const int t = min(f.row(mt, h), Q - 1);
+              float v = 0.0f;
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                const float2 cv = load2(Cc + t * ds, f.col(nt), ds);
+                float* a = acc[mt][nt] + 2 * h;
+                const float2 dyh = within(a, f.col(nt), ds);
+                v = fmaf(cv.x, dyh.x, v);
+                v = fmaf(cv.y, dyh.y, v);
+                a[0] = __fmul_rn(a[0], ecs[t]);
+                a[1] = __fmul_rn(a[1], ecs[t]);
+              }
+              v = quad_sum(v);
+              if (f.t == mt) keep[h] = v;
             }
-          }
-          gp[p * 8 + i] = g;
-          tp[p * 8 + i] = u;
-        }
-      },
-      [&](int m0, int tc) {
-        add_row_sums(gp, 8, Q, m0, tc, gd);
-        add_row_sums(tp, 8, Q, m0, tc, dtx);
-      });
+        },
+        [&](int p, const Frag<2>& f, float (&acc)[2][4][4]) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int t = f.row(mt, h);
+              if (f.t == mt) rowp[p * 32 + mt * 16 + f.g + 8 * h] = keep[h];
+              if (t >= Q) continue;
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt)
+                store2(dCc + t * ds, f.col(nt), ds, acc[mt][nt][2 * h],
+                       acc[mt][nt][2 * h + 1]);
+            }
+        },
+        [&](int m0, int tn) { add_row_sums<2>(rowp, Q, m0, tn, dce); });
+  }
 
   // d cs: through L, exp(cs[-1] - cs) and exp(cs); then d cs[-1] through
   // exp(cs[-1]) (the sum of dh ∘ h_in) and the gd terms
@@ -888,53 +1148,63 @@ ssd_bwd_reduce_kernel(const float* __restrict__ dA_part, int BH, int nc,
 
 // The main path's shapes (mamba2_370m: chunk 128, head 64, state 128) take
 // the instantiations with them fixed at compile time; other shapes the
-// generic ones. ``f`` is called with the local and the main kernel.
+// generic ones. ``f`` is called with the states and the main kernel.
 template <typename F>
 auto with_kernels(int Q, int hd, int ds, F&& f) {
   if (Q == 128 && hd == 64 && ds == 128)
-    return f(ssd_bwd_local_kernel<128, 64, 128>,
+    return f(ssd_bwd_states_kernel<128, 64, 128>,
              ssd_bwd_main_kernel<128, 64, 128>);
-  return f(ssd_bwd_local_kernel<0, 0, 0>, ssd_bwd_main_kernel<0, 0, 0>);
+  return f(ssd_bwd_states_kernel<0, 0, 0>, ssd_bwd_main_kernel<0, 0, 0>);
 }
 
 struct Sizes {
-  size_t cb, local, main;
+  size_t cb, states, main;
 };
+
+// The device and shapes whose limits were set last: a call at the same ones
+// sets none (each setting is a driver call of its own).
+std::atomic<long long> prepared{-1};
 
 // Raise the kernels' dynamic shared-memory limits to what the shapes need,
 // with all of an SM's shared memory carved out for the two that hold two
 // blocks an SM; cudaErrorInvalidValue when a block may not have that much.
 template <typename KL, typename KM>
-int prepare(KL local_k, KM main_k, int Q, int hd, int ds, Sizes* z) {
+int prepare(KL states_k, KM main_k, int Q, int hd, int ds, Sizes* z) {
   z->cb = cb_smem_bytes(Q);
-  z->local = local_smem_bytes(Q, hd, ds);
+  z->states = states_smem_bytes(Q, hd, ds);
   z->main = main_smem_bytes(Q, hd, ds);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const long long key = ((long long)dev << 48) ^ ((long long)Q << 32) ^
+                        ((long long)hd << 16) ^ (long long)ds;
+  if (prepared.load() == key) return 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return (int)err;
-  if (z->main > (size_t)optin || z->local > (size_t)optin ||
+  if (z->main > (size_t)optin || z->states > (size_t)optin ||
       z->cb > (size_t)optin)
     return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(ssd_bwd_cb_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)z->cb);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(local_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)z->local);
+  err = cudaFuncSetAttribute(
+      states_k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)z->states);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(main_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)z->main);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(local_k,
+  err = cudaFuncSetAttribute(states_k,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(
-      main_k, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
+  err = cudaFuncSetAttribute(main_k,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  prepared.store(key);
+  return 0;
 }
 
 }  // namespace
@@ -946,7 +1216,7 @@ int prepare(KL local_k, KM main_k, int Q, int hd, int ds, Sizes* z) {
 // nc, Q), seg and dA_part (BH, nc), hs and dhs (BH, nc, hd, ds), and, with
 // more than one row a group, dB_rows and dC_rows (BH, nc, Q, ds) (with one,
 // pass dB and dC there). Writes dx (BH, nc, Q, hd), ddt (BH, nc, Q), dA
-// (BH,), dB and dC (G, nc, Q, ds). Launches the five kernels on ``stream``;
+// (BH,), dB and dC (G, nc, Q, ds). Launches the four kernels on ``stream``;
 // returns the first CUDA error (0 on success), cudaErrorInvalidValue when
 // the shapes need more shared memory than a block may have. Allocates
 // nothing.
@@ -958,29 +1228,22 @@ extern "C" int ssd_scan_bwd_launch(
     int heads_per_group, float* dx, float* ddt, float* dA, float* dB,
     float* dC, void* stream) {
   if (BH == 0) return 0;
-  return with_kernels(Q, hd, ds, [&](auto local_k, auto main_k) {
+  return with_kernels(Q, hd, ds, [&](auto states_k, auto main_k) {
     Sizes z;
-    int err = prepare(local_k, main_k, Q, hd, ds, &z);
+    int err = prepare(states_k, main_k, Q, hd, ds, &z);
     if (err != 0) return err;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int groups = BH / heads_per_group;
     const int64_t per_row = (int64_t)nc * Q * ds;
-    const int64_t states = (int64_t)BH * hd * ds;
     const auto check = [] { return (int)cudaGetLastError(); };
     if (nc > 0) {
       ssd_bwd_cb_kernel<<<groups * nc, kThreads, z.cb, s>>>(Bm, Cm, Q, ds,
                                                             cb);
       if ((err = check())) return err;
-      local_k<<<BH * nc, kThreads, z.local, s>>>(x, dt, A, Bm, Cm, dy, nc, Q,
-                                               hd, ds, heads_per_group, cs,
-                                               seg, hs, dhs);
+      states_k<<<BH, kThreads, z.states, s>>>(x, dt, A, Bm, Cm, dy, dh_final,
+                                             nc, Q, hd, ds, heads_per_group,
+                                             cs, seg, hs, dhs);
       if ((err = check())) return err;
-      if (states > 0) {
-        ssd_bwd_carry_kernel<<<(unsigned)((states + kThreads - 1) / kThreads),
-                               kThreads, 0, s>>>(seg, dh_final, BH, nc, hd, ds,
-                                                 hs, dhs);
-        if ((err = check())) return err;
-      }
       main_k<<<BH * nc, kThreads, z.main, s>>>(
           x, dt, A, Bm, Cm, dy, cb, cs, seg, hs, dhs, nc, Q, hd, ds,
           heads_per_group, dx, ddt, dA_part, dB_rows, dC_rows);
@@ -997,37 +1260,29 @@ extern "C" int ssd_scan_bwd_launch(
   });
 }
 
-// The kernels of a call, in launch order, as the profiler names them.
-extern "C" const char* ssd_scan_bwd_kernel_names() {
-  return "ssd_bwd_cb_kernel ssd_bwd_local_kernel ssd_bwd_carry_kernel "
-         "ssd_bwd_main_kernel ssd_bwd_reduce_kernel";
-}
-
-// Per kernel of a call, in launch order: the bytes of dynamic shared memory
-// a block takes at these shapes, and the blocks one SM holds at once, as
-// the occupancy calculator gives them; returns a CUDA error.
+// Per kernel of a call, in launch order (C Bᵀ, the states, the main pass,
+// the sums): the bytes of dynamic shared memory a block takes at these
+// shapes, and the blocks one SM holds at once, as the occupancy calculator
+// gives them; returns a CUDA error.
 extern "C" int ssd_scan_bwd_kernel_info(int Q, int hd, int ds,
                                         long long* smem_bytes, int* blocks) {
-  return with_kernels(Q, hd, ds, [&](auto local_k, auto main_k) {
+  return with_kernels(Q, hd, ds, [&](auto states_k, auto main_k) {
     Sizes z;
-    int err = prepare(local_k, main_k, Q, hd, ds, &z);
+    int err = prepare(states_k, main_k, Q, hd, ds, &z);
     if (err != 0) return err;
-    const size_t bytes[5] = {z.cb, z.local, 0, z.main, 0};
-    for (int i = 0; i < 5; ++i) smem_bytes[i] = (long long)bytes[i];
+    const size_t bytes[4] = {z.cb, z.states, z.main, 0};
+    for (int i = 0; i < 4; ++i) smem_bytes[i] = (long long)bytes[i];
     if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &blocks[0], ssd_bwd_cb_kernel, kThreads, z.cb)))
       return err;
     if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks[1], local_k, kThreads, z.local)))
+             &blocks[1], states_k, kThreads, z.states)))
       return err;
     if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks[2], ssd_bwd_carry_kernel, kThreads, 0)))
-      return err;
-    if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &blocks[3], main_k, kThreads, z.main)))
+             &blocks[2], main_k, kThreads, z.main)))
       return err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks[4], ssd_bwd_reduce_kernel, kThreads, 0);
+        &blocks[3], ssd_bwd_reduce_kernel, kThreads, 0);
   });
 }
 

@@ -12,9 +12,9 @@ scan each rank's own rows through ``local_map``
 that launched the wrapper's kernels, once a call however many CUDA
 launches the call takes (a drain tick: zero, count, drain; link demand:
 zero, count, alloc, place, fold; an SSD scan: the C Bᵀ pre-pass and the
-scan; its backward: five, C Bᵀ, the chunk-local states, the recurrences
-over the chunks, the main pass per row and chunk, and the sums of dA over
-the chunks and of dB and dC over a group's rows; a route-rate-drain: one). The SSD scan's
+scan; its backward: four, C Bᵀ, the states and dh per row over the
+chunks, the main pass per row and chunk, and the sums of dA over the
+chunks and of dB and dC over a group's rows; a route-rate-drain: one). The SSD scan's
 backward is called by autograd, from the backward of a scan that ran on
 the card. A run on the card that went through the
 kernels every time shows ``LAUNCHES == CALLS``; :func:`reset_launches`

@@ -28,17 +28,17 @@ version). On the card :class:`SSDScan` (an autograd Function) runs
 :func:`ssd_scan_cuda` forward and ``ops.ssd_scan_bwd`` backward, which
 launches ``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd_cuda`; no TPU kernel
 corresponds: the JAX package differentiates its jnp scan). A backward
-call is five CUDA kernels (:data:`SSD_BWD_KERNELS`): C Bᵀ of each group
-and chunk; per (row, chunk) the cumsum and the chunk-local state and
-state gradient; the two recurrences over the chunks, elementwise; the
-main pass per (row, chunk); the sums of dA over the chunks and of dB and
-dC over a group's rows (no atomics, so a call repeats bit for bit).
+call is four CUDA kernels (:data:`SSD_BWD_KERNELS`): C Bᵀ of each group
+and chunk; per row, over its chunks, the cumsums, the states entering the
+chunks and dh leaving them; the main pass per (row, chunk), its products
+on the tensor cores in 3xTF32; the sums of dA over the chunks and of dB
+and dC over a group's rows (no atomics, so a call repeats bit for bit).
 :func:`ssd_scan_bwd_stages` is its plain mirror, stage by stage, for the
 tests and ``chip_smoke.py``. Its scratch at the training shapes of
 ``mamba2_370m`` (BH = 256 in 8 groups, nc = 32, Q = 128, hd = 64, ds =
-128): 1.07 GB for the per-row dB and dC (none with one row a group),
-268 MB each for the states entering the chunks and dh leaving them,
-16.8 MB for C Bᵀ, 4.2 MB for cs.
+128), one allocation: 1.07 GB for the per-row dB and dC (none with one
+row a group), 268 MB each for the states entering the chunks and dh
+leaving them, 16.8 MB for C Bᵀ, 4.2 MB for cs.
 
 Shapes (all float32): x (BH, nc, Q, hd); dt (BH, nc, Q); A (BH,);
 Bm, Cm (G, nc, Q, ds) with G dividing BH: row ``bh`` reads group
@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -187,9 +188,8 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh=None):
 
 
 # the backward's CUDA kernels, in launch order, as the profiler names them
-SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_local_kernel",
-                   "ssd_bwd_carry_kernel", "ssd_bwd_main_kernel",
-                   "ssd_bwd_reduce_kernel")
+SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_states_kernel",
+                   "ssd_bwd_main_kernel", "ssd_bwd_reduce_kernel")
 
 
 @functools.cache
@@ -225,6 +225,17 @@ def ssd_scan_bwd_occupancy(Q, hd, ds):
                 blocks_per_sm=dict(zip(SSD_BWD_KERNELS, blocks)))
 
 
+def _carve(dev, shapes):
+    """Float32 tensors of these shapes, views of one allocation, each
+    starting on a 256-byte boundary."""
+    sizes = [math.prod(s) for s in shapes]
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // 64) * 64)
+    buf = torch.empty(starts[-1], dtype=torch.float32, device=dev)
+    return [buf[a:a + n].view(s) for a, n, s in zip(starts, sizes, shapes)]
+
+
 def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None, scratch=None):
     """Launch the backward's kernels on the current stream (no
     synchronisation); returns (dx, ddt, dA, dB, dC) with dB and dC summed
@@ -256,20 +267,21 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None, scratch=None):
 
     dx, ddt, dA = empty(BH, nc, Q, hd), empty(BH, nc, Q), empty(BH)
     dB, dC = empty(G, nc, Q, ds), empty(G, nc, Q, ds)
-    # scratch: C Bᵀ, cs, exp(cs[-1]), the states and dh as [d][n], the
-    # chunks' parts of dA, and dB and dC per row when rows share a group
-    cb, cs, seg = empty(G, nc, Q, Q), empty(BH, nc, Q), empty(BH, nc)
-    hs, dhs, dA_part = empty(BH, nc, hd, ds), empty(BH, nc, hd, ds), empty(
-        BH, nc)
-    dB_rows, dC_rows = ((empty(BH, nc, Q, ds), empty(BH, nc, Q, ds))
-                        if hpg > 1 else (dB, dC))
+    # scratch, one allocation: C Bᵀ, cs, exp(cs[-1]), the states and dh as
+    # [d][n], the chunks' parts of dA, and dB and dC per row when rows
+    # share a group
+    shapes = [(G, nc, Q, Q), (BH, nc, Q), (BH, nc), (BH, nc, hd, ds),
+              (BH, nc, hd, ds), (BH, nc)]
+    if hpg > 1:
+        shapes += [(BH, nc, Q, ds)] * 2
+    cb, cs, seg, hs, dhs, dA_part, *rows = _carve(dev, shapes)
+    dB_rows, dC_rows = rows if hpg > 1 else (dB, dC)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    p = _build.ptr
+    p = torch.Tensor.data_ptr  # plain ints: ctypes makes the pointers
     err = launch(p(x), p(dt), p(A), p(Bm), p(Cm), p(dy),
                  p(dh) if dh is not None else None, p(cb), p(cs), p(seg),
                  p(hs), p(dhs), p(dA_part), p(dB_rows), p(dC_rows), BH, nc,
-                 Q, hd, ds, hpg, p(dx), p(ddt), p(dA), p(dB), p(dC),
-                 ctypes.c_void_p(stream))
+                 Q, hd, ds, hpg, p(dx), p(ddt), p(dA), p(dB), p(dC), stream)
     if err != 0:
         raise RuntimeError(
             f"ssd_scan_bwd kernel launch failed: {error_string(err).decode()}"
