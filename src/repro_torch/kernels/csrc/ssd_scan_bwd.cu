@@ -156,13 +156,16 @@ struct MainSmem {
   }
 };
 
-// The states kernel's: the ring and the chunk's vectors.
+// The states kernel's: the ring (its A slabs hd wide, its B slabs ds),
+// the running state (hd x ds) and the chunk's vectors.
 struct StatesSmem {
-  int qp, ring, dts, cs, ecs, dout, total;
+  int qp, ring, state, dts, cs, ecs, dout, total;
   __host__ __device__ StatesSmem(int Q, int hd, int ds) {
     qp = round_up(Q, 4);
     ring = 0;
-    dts = ring_floats(Q, hd, ds, kStatesStages);
+    state = imax(kStatesStages * (slab_floats(hd) + slab_floats(ds)),
+                 kPartials);
+    dts = state + round_up(hd * ds, 4);
     cs = dts + qp;
     ecs = cs + qp;
     dout = ecs + qp;
@@ -363,10 +366,12 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// x = hi + lo to about 22 bits: hi = tf32(x), lo = tf32(x - hi).
+// x = hi + lo to about 22 bits: hi = tf32(x), and lo = x - hi, exact in
+// fp32, which the tensor cores take as TF32 by dropping its low 13 bits
+// (an error below 2^-23 |x|, as |x - hi| <= 2^-12 |x|).
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 // c += a b on the tensor cores: a 16 x 8 (row-major fragment), b 8 x 8
@@ -703,8 +708,8 @@ ssd_bwd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
 // exp(cs_c[-1]) + Bᵀ((x·dt) ∘ exp(cs_c[-1] - cs_c)) (the forward's
 // arithmetic, with the chunk-local product on the tensor cores), and dh
 // leaving them, dh[nc - 1] = dh_final or 0 and dh[c - 1] = exp(cs_c[-1])·
-// dh[c] + Cᵀ(exp(cs_c) ∘ dy_c). Both are (hd, ds), [d][n], each chunk's
-// read back by the threads that need it for the next. A nonzero kQ, kHd or
+// dh[c] + Cᵀ(exp(cs_c) ∘ dy_c). Both are (hd, ds), [d][n]; the one in hand
+// stays in shared memory for the next chunk's carry. A nonzero kQ, kHd or
 // kDs fixes Q, hd or ds at compile time.
 template <int kQ, int kHd, int kDs>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -725,6 +730,7 @@ ssd_bwd_states_kernel(const float* __restrict__ x,
   const int64_t g = bh / heads_per_group;
   const int64_t hds = (int64_t)hd * ds;
   float* ring = smem + L.ring;
+  float* state = smem + L.state;  // h, then dh, of the chunk in hand
   float* dts = smem + L.dts;
   float* cs = smem + L.cs;
   float* ecs = smem + L.ecs;
@@ -744,8 +750,7 @@ ssd_bwd_states_kernel(const float* __restrict__ x,
     }
   for (int64_t e = threadIdx.x; e < hds; e += kThreads) {
     h_row[e] = 0.0f;
-    g_row[(nc - 1) * hds + e] =
-        dh_final ? dh_final[bh * hds + (e % ds) * hd + e / ds] : 0.0f;
+    state[e] = 0.0f;
   }
   __syncthreads();
   // chunk c's dt, cs, exp(cs) and exp(cs[-1] - cs); returns exp(cs[-1])
@@ -764,8 +769,9 @@ ssd_bwd_states_kernel(const float* __restrict__ x,
     __syncthreads();
     return seg_out[row];
   };
-  // out = in·seg + acc (fmaf when fused), one element each
-  const auto carry = [&](const float* in, float* out, float seg, bool fused) {
+  // state = state·seg + acc (fmaf when fused), one element each, into
+  // shared memory and out
+  const auto carry = [&](float* out, float seg, bool fused) {
     return [=](int, const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -776,13 +782,14 @@ ssd_bwd_states_kernel(const float* __restrict__ x,
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const int n = f.col(nt);
-            const float2 v = load2(in + d * ds, n, ds);
+            const float2 v = load2(state + d * ds, n, ds);
             const float* s = acc[mt][nt] + 2 * h;
-            store2(out + d * ds, n, ds,
-                   fused ? fmaf(seg, v.x, s[0])
-                         : __fadd_rn(__fmul_rn(v.x, seg), s[0]),
-                   fused ? fmaf(seg, v.y, s[1])
-                         : __fadd_rn(__fmul_rn(v.y, seg), s[1]));
+            const float x = fused ? fmaf(seg, v.x, s[0])
+                                  : __fadd_rn(__fmul_rn(v.x, seg), s[0]);
+            const float y = fused ? fmaf(seg, v.y, s[1])
+                                  : __fadd_rn(__fmul_rn(v.y, seg), s[1]);
+            store2(state + d * ds, n, ds, x, y);
+            store2(out + d * ds, n, ds, x, y);
           }
         }
     };
@@ -795,9 +802,14 @@ ssd_bwd_states_kernel(const float* __restrict__ x,
     xo.f2 = dout;
     block_product<2, 4, kStatesStages>(
         hd, ds, Phase{Q, xo, rows_of(Bm + (g * nc + c) * Q * ds, ds), kAll},
-        ring, carry(h_row + c * hds, h_row + (c + 1) * hds, seg, false),
+        ring, carry(h_row + (c + 1) * hds, seg, false),
         NoPost{});
   }
+  for (int64_t e = threadIdx.x; e < hds; e += kThreads) {
+    state[e] = dh_final ? dh_final[bh * hds + (e % ds) * hd + e / ds] : 0.0f;
+    g_row[(nc - 1) * hds + e] = state[e];
+  }
+  __syncthreads();
   for (int c = nc - 1; c > 0; --c) {  // dh[c - 1]
     const float seg = prologue(c);
     const int64_t row = (int64_t)bh * nc + c;
@@ -805,7 +817,7 @@ ssd_bwd_states_kernel(const float* __restrict__ x,
     yo.f1 = ecs;
     block_product<2, 4, kStatesStages>(
         hd, ds, Phase{Q, yo, rows_of(Cm + (g * nc + c) * Q * ds, ds), kAll},
-        ring, carry(g_row + c * hds, g_row + (c - 1) * hds, seg, true),
+        ring, carry(g_row + (c - 1) * hds, seg, true),
         NoPost{});
   }
 }
