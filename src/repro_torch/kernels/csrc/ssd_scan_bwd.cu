@@ -84,8 +84,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -1173,10 +1171,6 @@ struct Sizes {
   size_t cb, states, main;
 };
 
-// The device and shapes whose limits were set last: a call at the same ones
-// sets none (each setting is a driver call of its own).
-std::atomic<long long> prepared{-1};
-
 // Raise the kernels' dynamic shared-memory limits to what the shapes need,
 // with all of an SM's shared memory carved out for the two that hold two
 // blocks an SM; cudaErrorInvalidValue when a block may not have that much.
@@ -1188,9 +1182,6 @@ int prepare(KL states_k, KM main_k, int Q, int hd, int ds, Sizes* z) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const long long key = ((long long)dev << 48) ^ ((long long)Q << 32) ^
-                        ((long long)hd << 16) ^ (long long)ds;
-  if (prepared.load() == key) return 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return (int)err;
@@ -1211,12 +1202,9 @@ int prepare(KL states_k, KM main_k, int Q, int hd, int ds, Sizes* z) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(main_k,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  prepared.store(key);
-  return 0;
+  return (int)cudaFuncSetAttribute(
+      main_k, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace

@@ -14,9 +14,9 @@ launches the call takes (a drain tick: zero, count, drain; link demand:
 zero, count, alloc, place, fold; an SSD scan: the C Bᵀ pre-pass and the
 scan; its backward: four, C Bᵀ, the states and dh per row over the
 chunks, the main pass per row and chunk, and the sums of dA over the
-chunks and of dB and dC over a group's rows; a route-rate-drain: one). The SSD scan's
-backward is called by autograd, from the backward of a scan that ran on
-the card. A run on the card that went through the
+chunks and of dB and dC over a group's rows; a route-rate-drain: one).
+The SSD scan's backward is called by autograd, from the backward of a
+scan that ran on the card. A run on the card that went through the
 kernels every time shows ``LAUNCHES == CALLS``; :func:`reset_launches`
 sets every count to 0.
 """

@@ -36,9 +36,9 @@ and dC over a group's rows (no atomics, so a call repeats bit for bit).
 :func:`ssd_scan_bwd_stages` is its plain mirror, stage by stage, for the
 tests and ``chip_smoke.py``. Its scratch at the training shapes of
 ``mamba2_370m`` (BH = 256 in 8 groups, nc = 32, Q = 128, hd = 64, ds =
-128), one allocation: 1.07 GB for the per-row dB and dC (none with one
-row a group), 268 MB each for the states entering the chunks and dh
-leaving them, 16.8 MB for C Bᵀ, 4.2 MB for cs.
+128): 1.07 GB for the per-row dB and dC (none with one row a group), 268
+MB each for the states entering the chunks and dh leaving them, 16.8 MB
+for C Bᵀ, 4.2 MB for cs.
 
 Shapes (all float32): x (BH, nc, Q, hd); dt (BH, nc, Q); A (BH,);
 Bm, Cm (G, nc, Q, ds) with G dividing BH: row ``bh`` reads group
@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -225,24 +224,13 @@ def ssd_scan_bwd_occupancy(Q, hd, ds):
                 blocks_per_sm=dict(zip(SSD_BWD_KERNELS, blocks)))
 
 
-def _carve(dev, shapes):
-    """Float32 tensors of these shapes, views of one allocation, each
-    starting on a 256-byte boundary."""
-    sizes = [math.prod(s) for s in shapes]
-    starts = [0]
-    for n in sizes:
-        starts.append(starts[-1] + -(-n // 64) * 64)
-    buf = torch.empty(starts[-1], dtype=torch.float32, device=dev)
-    return [buf[a:a + n].view(s) for a, n, s in zip(starts, sizes, shapes)]
-
-
 def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None, scratch=None):
     """Launch the backward's kernels on the current stream (no
     synchronisation); returns (dx, ddt, dA, dB, dC) with dB and dC summed
     over each group's rows. Raises on a tensor the kernel does not take and
     on a launch the driver refuses. A dict given as ``scratch`` receives
-    the call's intermediates: ``cs`` (BH, nc, Q), the states entering the
-    chunks ``h_in`` and dh leaving them ``dh_out``, both (BH, nc, ds, hd)."""
+    the call's intermediates: the states entering the chunks ``h_in`` and
+    dh leaving them ``dh_out``, both (BH, nc, ds, hd)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan_bwd_cuda needs CUDA tensors, got {dev}")
@@ -267,27 +255,26 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dh=None, scratch=None):
 
     dx, ddt, dA = empty(BH, nc, Q, hd), empty(BH, nc, Q), empty(BH)
     dB, dC = empty(G, nc, Q, ds), empty(G, nc, Q, ds)
-    # scratch, one allocation: C Bᵀ, cs, exp(cs[-1]), the states and dh as
-    # [d][n], the chunks' parts of dA, and dB and dC per row when rows
-    # share a group
-    shapes = [(G, nc, Q, Q), (BH, nc, Q), (BH, nc), (BH, nc, hd, ds),
-              (BH, nc, hd, ds), (BH, nc)]
-    if hpg > 1:
-        shapes += [(BH, nc, Q, ds)] * 2
-    cb, cs, seg, hs, dhs, dA_part, *rows = _carve(dev, shapes)
-    dB_rows, dC_rows = rows if hpg > 1 else (dB, dC)
+    # scratch: C Bᵀ, cs, exp(cs[-1]), the states and dh as [d][n], the
+    # chunks' parts of dA, and dB and dC per row when rows share a group
+    cb, cs, seg = empty(G, nc, Q, Q), empty(BH, nc, Q), empty(BH, nc)
+    hs, dhs, dA_part = empty(BH, nc, hd, ds), empty(BH, nc, hd, ds), empty(
+        BH, nc)
+    dB_rows, dC_rows = ((empty(BH, nc, Q, ds), empty(BH, nc, Q, ds))
+                        if hpg > 1 else (dB, dC))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    p = torch.Tensor.data_ptr  # plain ints: ctypes makes the pointers
+    p = _build.ptr
     err = launch(p(x), p(dt), p(A), p(Bm), p(Cm), p(dy),
                  p(dh) if dh is not None else None, p(cb), p(cs), p(seg),
                  p(hs), p(dhs), p(dA_part), p(dB_rows), p(dC_rows), BH, nc,
-                 Q, hd, ds, hpg, p(dx), p(ddt), p(dA), p(dB), p(dC), stream)
+                 Q, hd, ds, hpg, p(dx), p(ddt), p(dA), p(dB), p(dC),
+                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"ssd_scan_bwd kernel launch failed: {error_string(err).decode()}"
             f" ({err}); Q={Q}, hd={hd}, ds={ds}")
     if scratch is not None:
-        scratch.update(cs=cs, h_in=hs.transpose(-1, -2),
+        scratch.update(h_in=hs.transpose(-1, -2),
                        dh_out=dhs.transpose(-1, -2))
     return dx, ddt, dA, dB, dC
 
@@ -298,8 +285,8 @@ def ssd_scan_bwd_stages(x, dt, A, Bm, Cm, dy, dh=None):
     chunk's exit ``dh_out`` (BH, nc, ds, hd) by the two recurrences over
     the chunk-local terms, then every chunk's gradients in closed form at
     once, summed as the kernel sums them (dA over the chunks, dB and dC
-    over a group's rows). Returns dict(cs, h_in, dh_out, grads=(dx, ddt,
-    dA, dB, dC)); the grads are those of :func:`ssd_scan_bwd_plain`."""
+    over a group's rows). Returns dict(h_in, dh_out, grads=(dx, ddt, dA,
+    dB, dC)); the grads are those of :func:`ssd_scan_bwd_plain`."""
     BH, nc, Q, hd = x.shape
     ds = Bm.shape[-1]
     G, hpg = _groups(x, Bm)
@@ -340,7 +327,7 @@ def ssd_scan_bwd_stages(x, dt, A, Bm, Cm, dy, dh=None):
     dA = (dt * rev).sum(-1).sum(-1)
     dB = dB.view(G, hpg, nc, Q, ds).sum(1)
     dC = dC.view(G, hpg, nc, Q, ds).sum(1)
-    return dict(cs=cs, h_in=h_in, dh_out=dh_out,
+    return dict(h_in=h_in, dh_out=dh_out,
                 grads=(dt[..., None] * dxdt, ddt, dA, dB, dC))
 
 
