@@ -73,9 +73,10 @@
 // inside a k-loop. A row's sums over a tile's columns go over the quad by
 // shuffles, and over the tiles in tile order through shared memory.
 //
-// Arithmetic: 3xTF32, each operand split as hi = tf32(a) and lo = tf32(a -
-// hi), and lo·hi + hi·lo + hi·hi accumulated in fp32 (lo·lo dropped): about
-// fp32's accuracy (the tolerance against the plain version is unchanged).
+// Arithmetic: 3xTF32, each operand split as hi = tf32(a) and lo = a - hi
+// (which the tensor cores read as TF32), and lo·hi + hi·lo + hi·hi
+// accumulated in fp32 (lo·lo dropped): about fp32's accuracy (the
+// tolerance against the plain version is unchanged).
 // No atomics, so two calls on the same inputs give the same bits. The main
 // path's shapes (Q 128, hd 64, ds 128) get instantiations with them fixed
 // at compile time; other shapes take the generic ones.
@@ -447,10 +448,9 @@ struct NoMid {
 // tile between the phases. The staged operands of both phases stream
 // through the ring's STAGES slots, slabs of kTileK rows of k, STAGES - 1
 // of them in flight while one is used. Then epi(p, f, acc) on each live
-// tile (p: its
-// index in the pass), a barrier, post(m0, tn) by every thread (m0: the
-// pass's first tile, tn: tiles a row), a barrier. Every thread must call
-// it; mid and epi run on whole warps.
+// tile (p: its index in the pass), a barrier, post(m0, tn) by every thread
+// (m0: the pass's first tile, tn: tiles a row), a barrier. Every thread
+// must call it; mid and epi run on whole warps.
 template <int MT, int NT, int STAGES, typename Mid, typename Epi,
           typename Post>
 __device__ __forceinline__ void block_product2(int M, int N, const Phase& P1,

@@ -10,9 +10,14 @@ timed only), each from the source with text cuts:
 * ``no_mma``: the tensor-core products (the three ``mma_tf32`` of a
   3xTF32 step);
 * ``no_stage``: the staging copies of the block products' slabs;
-* ``no_epi``: the block products' epilogues;
+* ``no_epi``: the block products' epilogues (and so the products whose
+  results only they read: the compiler drops those);
 * ``only_skeleton``: all three (barriers, mid and post steps, prologues
   and tails remain);
+* ``no_stores``: the main pass's stores of dx, dB and dC (guarded by a
+  condition that never holds, so what they store is still computed);
+* ``no_loads``: the main pass's loads of x, C and C Bᵀ in its mid steps
+  and epilogues (made-up values in their place);
 * ``no_products``: the main pass's four block products (its prologue,
   the d cs tail and the sum of dh ∘ h_in remain);
 * ``main_prologue``: the main pass up to its first product.
@@ -42,10 +47,15 @@ STAGE = ("if (P.A.p) stage(slab(i), wa, P.A, M, k0, kn);\n"
 EPI = "if (live) epi(wt - m0, f, acc);"
 MAIN_PRODUCT = re.compile(r"(block_product2?<2, 4, kMainStages>\()")
 FIRST_PRODUCT = "  // du = B dh, then d(x·dt)"
+LOADS = ("load2(xc", "load2(Cc", "load2(cbc")
+FAKE_LOAD = ("__device__ __forceinline__ float2 made_up(const float* p, int c, "
+             "int n) {\n  float2 v;\n  v.x = 0.5f + c;\n  v.y = 0.25f + n;\n"
+             "  return v;\n}\n\n")
+HELPERS = "// a[0], a[1] of the columns c, c + 1 of a tile"
 
 
 def variants(src):
-    for cut in (MMA, STAGE, EPI, FIRST_PRODUCT):
+    for cut in (MMA, STAGE, EPI, FIRST_PRODUCT, HELPERS) + LOADS:
         if cut not in src:
             raise SystemExit(f"ssd_scan_bwd_pieces: cut not found: {cut!r}")
     head = src.index("ssd_bwd_main_kernel(const float* __restrict__ x")
@@ -53,6 +63,11 @@ def variants(src):
 
     def in_main(f):
         return src[:head] + f(src[head:tail]) + src[tail:]
+
+    def no_loads(main):
+        for load in LOADS:
+            main = main.replace(load, "made_up" + load[len("load2"):])
+        return main
 
     def no_products(main):
         if len(MAIN_PRODUCT.findall(main)) != 4:
@@ -70,6 +85,9 @@ def variants(src):
         "no_products": in_main(no_products),
         "main_prologue": in_main(lambda m: m.replace(
             FIRST_PRODUCT, "  if (blockDim.x) return;\n" + FIRST_PRODUCT)),
+        "no_stores": in_main(lambda m: m.replace(
+            "store2(", "if (blockDim.x == 0) store2(")),
+        "no_loads": in_main(no_loads).replace(HELPERS, FAKE_LOAD + HELPERS),
     }
 
 
