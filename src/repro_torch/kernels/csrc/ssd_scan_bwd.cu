@@ -54,7 +54,13 @@
 //    land; dM, turned in place into dM ∘ L with the row and column sums of
 //    dM ∘ C Bᵀ ∘ L; dB; dC, which reads dM ∘ L with k fastest where dB
 //    reads it k-major; then the reverse cumsum as a warp scan into ddt
-//    and the chunk's part of dA. dB and dC are written per row.
+//    and the chunk's part of dA. dB and dC are written per row. The terms
+//    of d cs and ddt that need x (x · d(x·dt) and du · x) come from sums
+//    the products hold anyway (the column sums above before dt, and the
+//    row sums of B ∘ (x dhᵀ) from dB's first phase), so no step reads x
+//    outside the staging. Outputs larger than L2 (dx, the per-row dB and
+//    dC, the states kernel's states and dh) are stored as streaming, to
+//    leave L2 to the group's B, C and C Bᵀ that every row reads.
 // 4. ssd_bwd_reduce_kernel: dA summed over the chunks, dB and dC over a
 //    group's rows, each in a fixed order.
 // A product is an mma.sync m16n8k8 TF32 pass: a warp takes 32 x 32 outputs
@@ -618,13 +624,19 @@ __device__ __forceinline__ float2 within(const float* a, int c, int n) {
   return v;
 }
 
+// p[c] = x, p[c + 1] = y of a row of n floats, as load2 reads them; with
+// ``stream``, marked to leave the caches first (outputs larger than L2 that
+// no block of the same kernel reads again)
 __device__ __forceinline__ void store2(float* p, int c, int n, float x,
-                                       float y) {
+                                       float y, bool stream = false) {
   if (c + 1 < n && reinterpret_cast<uintptr_t>(p + c) % 8 == 0) {
     float2 v;
     v.x = x;
     v.y = y;
-    *reinterpret_cast<float2*>(p + c) = v;
+    if (stream)
+      __stcs(reinterpret_cast<float2*>(p + c), v);
+    else
+      *reinterpret_cast<float2*>(p + c) = v;
     return;
   }
   if (c < n) p[c] = x;
@@ -787,7 +799,7 @@ ssd_bwd_states_kernel(const float* __restrict__ x,
             const float y = fused ? fmaf(seg, v.y, s[1])
                                   : __fadd_rn(__fmul_rn(v.y, seg), s[1]);
             store2(state + d * ds, n, ds, x, y);
-            store2(out + d * ds, n, ds, x, y);
+            store2(out + d * ds, n, ds, x, y, true);
           }
         }
     };
@@ -892,18 +904,12 @@ ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         w.r < Q && w.c <= w.r ? expf(cs[w.r] - cs[w.c]) : 0.0f;
   __syncthreads();
 
-  // du = B dh, then d(x·dt) = exp(cs[-1] - cs) ∘ du + (C Bᵀ ∘ L)ᵀ dy (the
-  // C Bᵀ slabs scaled by L as they land) and dx = dt ∘ d(x·dt); between
-  // the two, through exp(cs[-1] - cs): gd = exp(cs[-1] - cs) ∘ (du · x·dt)
-  // adds to d cs[-1] and takes from d cs_s; dtx = x · d(x·dt). A row's
-  // sums over a warp tile's columns are kept by the quad's lane t = mt.
+  // du = B dh, then d(x·dt) = exp(cs[-1] - cs) ∘ du + (C Bᵀ ∘ L)ᵀ dy
+  // (the C Bᵀ slabs scaled by L as they land) and dx = dt ∘ d(x·dt)
   {
     Operand cbl = rows_of(cbc, Q);
     cbl.fm = X;
     cbl.fml = xw;
-    float* gp = ring;
-    float* tp = ring + kWarps * kEdge;
-    float keep[2];
     block_product2<2, 4, kMainStages>(
         Q, hd, Phase{ds, cols_of(Bc, ds), cols_of(dhc, ds), kAll},
         Phase{Q, cbl, rows_of(dyc, hd), kFromRow}, ring,
@@ -913,55 +919,37 @@ ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int s = min(f.row(mt, h), Q - 1);
-              float v = 0.0f;
 #pragma unroll
-              for (int nt = 0; nt < 4; ++nt) {
-                const float2 xv = load2(xc + s * hd, f.col(nt), hd);
-                float* a = acc[mt][nt] + 2 * h;
-                const float2 du = within(a, f.col(nt), hd);
-                v = fmaf(du.x, __fmul_rn(xv.x, dts[s]), v);
-                v = fmaf(du.y, __fmul_rn(xv.y, dts[s]), v);
-                a[0] = __fmul_rn(dout[s], a[0]);
-                a[1] = __fmul_rn(dout[s], a[1]);
-              }
-              v = quad_sum(v);
-              if (f.t == mt) keep[h] = v;
+              for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  float& a = acc[mt][nt][2 * h + e];
+                  a = __fmul_rn(dout[s], a);
+                }
             }
         },
-        [&](int p, const Frag<2>& f, float (&acc)[2][4][4]) {
+        [&](int, const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int s = f.row(mt, h);
-              float u = 0.0f;
-              if (s < Q) {
+              if (s >= Q) continue;
 #pragma unroll
-                for (int nt = 0; nt < 4; ++nt) {
-                  const int d = f.col(nt);
-                  const float2 xv = load2(xc + s * hd, d, hd);
-                  const float* a = acc[mt][nt] + 2 * h;
-                  const float2 dxdt = within(a, d, hd);
-                  u = fmaf(xv.x, dxdt.x, u);
-                  u = fmaf(xv.y, dxdt.y, u);
-                  store2(dxc + s * hd, d, hd, __fmul_rn(dts[s], a[0]),
-                         __fmul_rn(dts[s], a[1]));
-                }
+              for (int nt = 0; nt < 4; ++nt) {
+                const float* a = acc[mt][nt] + 2 * h;
+                store2(dxc + s * hd, f.col(nt), hd, __fmul_rn(dts[s], a[0]),
+                       __fmul_rn(dts[s], a[1]), true);
               }
-              u = quad_sum(u);
-              const int lr = p * 32 + mt * 16 + f.g + 8 * h;
-              if (f.t == 0) tp[lr] = u;
-              if (f.t == mt) gp[lr] = keep[h];
             }
         },
-        [&](int m0, int tn) {
-          add_row_sums<2>(gp, Q, m0, tn, gd);
-          add_row_sums<2>(tp, Q, m0, tn, dtx);
-        });
+        NoPost{});
   }
 
-  // dM = dy (x·dt)ᵀ (causal); X becomes dM ∘ L, and P = dM ∘ L ∘ C Bᵀ adds
-  // to d cs_t along its row and takes from d cs_s along its column
+  // dM = dy (x·dt)ᵀ (causal); X becomes dM ∘ L, and P = dM ∘ L ∘ C Bᵀ
+  // adds to d cs_t along its row and takes from d cs_s along its column.
+  // The column sums are taken before dM's factor dt_s: so they are also
+  // x_s · ((C Bᵀ ∘ L)ᵀ dy)_s, a part of x · d(x·dt)
   block_product<2, 4, kMainStages>(
       Q, Q, Phase{hd, cols_of(dyc, hd), cols_of(xc, hd), kLower}, ring,
       [&](int p, const Frag<2>& f, float (&acc)[2][4][4]) {
@@ -982,13 +970,15 @@ ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 float2 l = *xp;
                 const float2 cb2 = load2(cbc + t * Q, s, Q);
                 const float2 dm = within(acc[mt][nt] + 2 * h, s, Q);
-                l.x = __fmul_rn(__fmul_rn(dm.x, dts[min(s, Q - 1)]), l.x);
-                l.y = __fmul_rn(__fmul_rn(dm.y, dts[min(s + 1, Q - 1)]), l.y);
+                const float dt0 = dts[min(s, Q - 1)];
+                const float dt1 = dts[min(s + 1, Q - 1)];
+                const float p0 = __fmul_rn(__fmul_rn(dm.x, l.x), cb2.x);
+                const float p1 = __fmul_rn(__fmul_rn(dm.y, l.y), cb2.y);
+                l.x = __fmul_rn(__fmul_rn(dm.x, dt0), l.x);
+                l.y = __fmul_rn(__fmul_rn(dm.y, dt1), l.y);
                 *xp = l;
-                const float p0 = __fmul_rn(l.x, cb2.x);
-                const float p1 = __fmul_rn(l.y, cb2.y);
-                rpart += p0;
-                rpart += p1;
+                rpart += __fmul_rn(p0, dt0);
+                rpart += __fmul_rn(p1, dt1);
                 cpart[nt][0] += p0;
                 cpart[nt][1] += p1;
               }
@@ -1009,39 +999,54 @@ ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         add_col_sums<32>(colp, Q, cdiv(Q, 32), m0, tn, dcol);
       });
 
-  // dB = exp(cs[-1] - cs) ∘ ((x·dt) dhᵀ) + (dM ∘ L)ᵀ C, per row
-  block_product2<2, 4, kMainStages>(
-      Q, ds, Phase{hd, cols_of(xc, hd), rows_of(dhc, ds), kAll},
-      Phase{Q, resident(X, xw, true), rows_of(Cc, ds), kFromRow}, ring,
-      [&](const Frag<2>& f, float (&acc)[2][4][4]) {
+  // dB = exp(cs[-1] - cs) ∘ ((x·dt) dhᵀ) + (dM ∘ L)ᵀ C, per row; between
+  // the two, q_s = the row sum of B ∘ (x dhᵀ), which is du_s · x_s: through
+  // exp(cs[-1] - cs), gd = exp(cs[-1] - cs) ∘ dt ∘ q adds to d cs[-1] and
+  // takes from d cs_s, and exp(cs[-1] - cs) ∘ q is the rest of x ·
+  // d(x·dt). A row's sums over a warp tile's columns are kept by the
+  // quad's lane t = mt.
+  {
+    float keep[2];
+    block_product2<2, 4, kMainStages>(
+        Q, ds, Phase{hd, cols_of(xc, hd), rows_of(dhc, ds), kAll},
+        Phase{Q, resident(X, xw, true), rows_of(Cc, ds), kFromRow}, ring,
+        [&](const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+          for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int s = min(f.row(mt, h), Q - 1);
+            for (int h = 0; h < 2; ++h) {
+              const int s = min(f.row(mt, h), Q - 1);
+              float v = 0.0f;
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float& a = acc[mt][nt][2 * h + e];
-                a = __fmul_rn(__fmul_rn(a, dts[s]), dout[s]);
+              for (int nt = 0; nt < 4; ++nt) {
+                const float2 bv = load2(Bc + s * ds, f.col(nt), ds);
+                float* a = acc[mt][nt] + 2 * h;
+                const float2 xdh = within(a, f.col(nt), ds);
+                v = fmaf(bv.x, xdh.x, v);
+                v = fmaf(bv.y, xdh.y, v);
+                a[0] = __fmul_rn(__fmul_rn(a[0], dts[s]), dout[s]);
+                a[1] = __fmul_rn(__fmul_rn(a[1], dts[s]), dout[s]);
               }
-          }
-      },
-      [&](int, const Frag<2>& f, float (&acc)[2][4][4]) {
+              v = quad_sum(v);
+              if (f.t == mt) keep[h] = v;
+            }
+        },
+        [&](int p, const Frag<2>& f, float (&acc)[2][4][4]) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+          for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int s = f.row(mt, h);
-            if (s >= Q) continue;
+            for (int h = 0; h < 2; ++h) {
+              const int s = f.row(mt, h);
+              if (f.t == mt) rowp[p * 32 + mt * 16 + f.g + 8 * h] = keep[h];
+              if (s >= Q) continue;
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              store2(dBc + s * ds, f.col(nt), ds, acc[mt][nt][2 * h],
-                     acc[mt][nt][2 * h + 1]);
-          }
-      },
-      NoPost{});
+              for (int nt = 0; nt < 4; ++nt)
+                store2(dBc + s * ds, f.col(nt), ds, acc[mt][nt][2 * h],
+                       acc[mt][nt][2 * h + 1], true);
+            }
+        },
+        [&](int m0, int tn) { add_row_sums<2>(rowp, Q, m0, tn, gd); });
+  }
 
   // dC = exp(cs) ∘ (dy h_inᵀ) + (dM ∘ L) B, per row; between the two, the
   // row sums of C ∘ (dy h_inᵀ), the exp(cs) term of d cs
@@ -1082,7 +1087,7 @@ ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
               for (int nt = 0; nt < 4; ++nt)
                 store2(dCc + t * ds, f.col(nt), ds, acc[mt][nt][2 * h],
-                       acc[mt][nt][2 * h + 1]);
+                       acc[mt][nt][2 * h + 1], true);
             }
         },
         [&](int m0, int tn) { add_row_sums<2>(rowp, Q, m0, tn, dce); });
@@ -1093,12 +1098,16 @@ ssd_bwd_main_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   float v = 0.0f;
   for (int e = tid; e < hds; e += kThreads) v = fmaf(dhc[e], hc[e], v);
   const float dseg = block_sum(v, red);
+  // gd holds q, dcol the column sums before dt
   float gsum = 0.0f;
   for (int q = tid; q < Q; q += kThreads) {
-    gd[q] = __fmul_rn(dout[q], gd[q]);
+    const float dq = __fmul_rn(dout[q], gd[q]);
+    dtx[q] = __fadd_rn(dcol[q], dq);
+    gd[q] = __fmul_rn(dts[q], dq);
     gsum += gd[q];
-    dcs[q] = __fadd_rn(__fsub_rn(__fsub_rn(drow[q], dcol[q]), gd[q]),
-                       __fmul_rn(ecs[q], dce[q]));
+    dcs[q] = __fadd_rn(
+        __fsub_rn(__fsub_rn(drow[q], __fmul_rn(dts[q], dcol[q])), gd[q]),
+        __fmul_rn(ecs[q], dce[q]));
   }
   const float gtot = block_sum(gsum, red);
   if (tid == 0) dcs[Q - 1] += gtot + seg * dseg;

@@ -16,7 +16,7 @@ timed only), each from the source with text cuts:
   and tails remain);
 * ``no_stores``: the main pass's stores of dx, dB and dC (guarded by a
   condition that never holds, so what they store is still computed);
-* ``no_loads``: the main pass's loads of x, C and C Bᵀ in its mid steps
+* ``no_loads``: the main pass's loads of B, C and C Bᵀ in its mid steps
   and epilogues (made-up values in their place);
 * ``no_products``: the main pass's four block products (its prologue,
   the d cs tail and the sum of dh ∘ h_in remain);
@@ -47,7 +47,7 @@ STAGE = ("if (P.A.p) stage(slab(i), wa, P.A, M, k0, kn);\n"
 EPI = "if (live) epi(wt - m0, f, acc);"
 MAIN_PRODUCT = re.compile(r"(block_product2?<2, 4, kMainStages>\()")
 FIRST_PRODUCT = "  // du = B dh, then d(x·dt)"
-LOADS = ("load2(xc", "load2(Cc", "load2(cbc")
+LOADS = ("load2(Bc", "load2(Cc", "load2(cbc")
 FAKE_LOAD = ("__device__ __forceinline__ float2 made_up(const float* p, int c, "
              "int n) {\n  float2 v;\n  v.x = 0.5f + c;\n  v.y = 0.25f + n;\n"
              "  return v;\n}\n\n")
