@@ -2588,8 +2588,6 @@ def phase_lm_families(dev):
 # ---------------------------------------------------------------------------
 
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
-# every CUDA kernel of the backward is named so (the profiler's keys)
-SSD_BWD_PREFIX = "ssd_bwd_"
 
 
 def ssd_bwd_check(got, args, dy, what):
@@ -2635,7 +2633,7 @@ def ssd_bwd_bound_ms(x, Bm):
     B, C, dy) read once and the outputs (dx, ddt, dA, dB, dC) written
     once; the larger of the two. Returns it, what bounds it, the FLOPs,
     the bytes, and the bound at the float32 rate outside the tensor cores
-    (the unit of the backward's first design)."""
+    (the same products as single float32 FMAs)."""
     BH, nc, Q, hd = x.shape
     G, ds = Bm.shape[0], Bm.shape[-1]
     tri = Q * (Q + 1) // 2
@@ -2759,8 +2757,7 @@ def phase_ssd_bwd(dev, B=8, nh=32, hd=64, ds=128, Q=128, S=4096, Sr=4000):
               occupancy=ssd_scan_bwd_occupancy(Q, hd, ds),
               jamba_occupancy=ssd_scan_bwd_occupancy(Q, 64, 16)))
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
-                fp32_bound_ms=fp32_bound_ms)
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ---------------------------------------------------------------------------
@@ -2945,6 +2942,7 @@ def phase_lm_train(dev, steps=5):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, device_batch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import SSD_BWD_KERNELS
     from repro_torch.launch import train as TRAIN
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import init_state, make_train_step
@@ -3023,7 +3021,8 @@ def phase_lm_train(dev, steps=5):
          f"lm_train accum=2: loss {m7['loss']}, ssd_scan_bwd "
          f"{ops.LAUNCHES['ssd_scan_bwd']} launches")
     tokens_per_step = dc.global_batch * dc.seq_len
-    bwd_us = sum(r[0] for r in prows if SSD_BWD_PREFIX in r[2])
+    bwd_us = sum(r[0] for r in prows
+                 if any(kernel_named(r[2], k) for k in SSD_BWD_KERNELS))
     line = dict(phase="lm_train", arch=LM_ARCH, layers=cfg.n_layers,
                 d_model=cfg.d_model, params=sum(p.numel()
                                                for p in p6.parameters()),
@@ -3499,8 +3498,6 @@ def run_phases(dev, dry, t0) -> int:
              max_abs_err=ssd_bwd["max_abs_err"], ms=ssd_bwd["ms"],
              plain_ms=ssd_bwd["plain_ms"], bound_ms=ssd_bwd["bound_ms"],
              bound_by=ssd_bwd["bound_by"], library_ms=None,
-             # the bound at the float32 rate, the first design's unit
-             fp32_bound_ms=ssd_bwd["fp32_bound_ms"],
              mesh_launches=mesh_train["ssd_scan_bwd"]),
         dict(name="router_rate_drain", route="cuda",
              source="src/repro_torch/kernels/csrc/router_tick.cu",

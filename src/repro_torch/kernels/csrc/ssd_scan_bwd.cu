@@ -32,8 +32,7 @@
 // once (x, dy, dx; dt, ddt; A, dA; B, C, dB, dC a group: 0.26 ms at 3.35
 // TB/s). chip_smoke's ssd_bwd_bound_ms works them out from the shapes.
 //
-// Design: four kernels a call (the first design, one block of 512 threads
-// a row walking its 32 chunks, took 8.7x the fp32 bound).
+// Design: four kernels a call.
 // 1. ssd_bwd_cb_kernel, one block per (group, chunk): C Bᵀ of the chunk,
 //    [t][s], 0 above the diagonal, into scratch.
 // 2. ssd_bwd_states_kernel, one block per row over its chunks: the chunk
@@ -79,10 +78,16 @@
 // inside a k-loop. A row's sums over a tile's columns go over the quad by
 // shuffles, and over the tiles in tile order through shared memory.
 //
-// Arithmetic: 3xTF32, each operand split as hi = tf32(a) and lo = a - hi
-// (which the tensor cores read as TF32), and lo·hi + hi·lo + hi·hi
-// accumulated in fp32 (lo·lo dropped): about fp32's accuracy (the
-// tolerance against the plain version is unchanged).
+// Arithmetic: 3xTF32, each operand split as hi = tf32(a), rounded to
+// nearest, and lo = a - hi, which the tensor cores read as TF32 rounded
+// toward zero; lo·hi + hi·lo + hi·hi (lo·lo dropped) of each k-step of 8
+// summed on the tensor cores from 0, then added to the output's fp32
+// accumulator by a rounded add. The tensor cores' own fp32 accumulation
+// does not round to nearest: chained over a whole product it took dA's
+// error to a float64 version to 5.3x the plain float32 version's at
+// jamba's shape, and with a rounded add a step every output stays within
+// 1.2x. Rounding lo to nearest as well added an instruction to each split
+// and left the errors no smaller.
 // No atomics, so two calls on the same inputs give the same bits. The main
 // path's shapes (Q 128, hd 64, ds 128) get instantiations with them fixed
 // at compile time; other shapes take the generic ones.
@@ -371,9 +376,9 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// x = hi + lo to about 22 bits: hi = tf32(x), and lo = x - hi, exact in
+// x = hi + lo to about 21 bits: hi = tf32(x), and lo = x - hi, exact in
 // fp32, which the tensor cores take as TF32 by dropping its low 13 bits
-// (an error below 2^-23 |x|, as |x - hi| <= 2^-12 |x|).
+// (an error below 2^-21 |x|, as |x - hi| <= 2^-11 |x|).
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
@@ -448,7 +453,7 @@ struct NoMid {
 
 // out[m][n] = P1(m, n), then mid, then + P2(m, n), for m < M, n < N, on
 // the tensor cores in 3xTF32: each operand split as hi + lo, and lo·hi +
-// hi·lo + hi·hi accumulated in fp32 (lo·lo dropped). A warp takes a tile
+// hi·lo + hi·hi of each k-step added in fp32 (lo·lo dropped). A warp takes a tile
 // of MT m-tiles (16 rows, in the folded order) by NT n-tiles (8 columns),
 // in passes of kWarps tiles (n fastest). mid(f, acc) runs on each live
 // tile between the phases. The staged operands of both phases stream
@@ -562,9 +567,13 @@ __device__ __forceinline__ void block_product2(int M, int N, const Phase& P1,
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             if (P.mode == kLower && f.c0 + 8 * nt > r + 15) continue;
-            mma_tf32(acc[mt][nt], al, bh[nt]);
-            mma_tf32(acc[mt][nt], ah, bl[nt]);
-            mma_tf32(acc[mt][nt], ah, bh[nt]);
+            // this k-step alone, then a rounded add (see Arithmetic)
+            float step[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_tf32(step, al, bh[nt]);
+            mma_tf32(step, ah, bl[nt]);
+            mma_tf32(step, ah, bh[nt]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += step[e];
           }
         }
       }
