@@ -1,0 +1,5 @@
+"""device.idle_share.single: ``device.idle_share`` in the one-member cell
+(``df1d_w1.single``), which reports ``scenario_rate``."""
+from readers import same_as
+
+read = same_as("device.idle_share")

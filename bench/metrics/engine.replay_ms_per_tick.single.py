@@ -1,0 +1,5 @@
+"""engine.replay_ms_per_tick.single: ``engine.replay_ms_per_tick`` in the one-member cell
+(``df1d_w1.single``), which reports ``scenario_rate``."""
+from readers import same_as
+
+read = same_as("engine.replay_ms_per_tick")

@@ -1,0 +1,5 @@
+"""kernel.link_demand.roofline.split4: ``kernel.link_demand.roofline`` in the cell split over four cards
+(``df1d_w1.split4``), which reports ``split_rate``."""
+from readers import same_as
+
+read = same_as("kernel.link_demand.roofline")
