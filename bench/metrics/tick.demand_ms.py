@@ -1,0 +1,10 @@
+"""tick.demand_ms: device milliseconds a tick of one batch in the tick's
+``demand`` part, the link demand: ``KOPS.link_demand`` and the failed-
+link ``torch.cat``; timed by events inside the traced tick graph
+(``RunStats.part_device_ms``), summed over the window's repeats that
+held no profile."""
+from tick_parts import part_ms_per_tick
+
+
+def read(ctx):
+    return part_ms_per_tick(ctx, "demand")

@@ -1,0 +1,5 @@
+"""tick.demand_ms.single: ``tick.demand_ms`` in the one-member cell
+(``df1d_w1.single``), which reports ``scenario_rate``."""
+from readers import same_as
+
+read = same_as("tick.demand_ms")

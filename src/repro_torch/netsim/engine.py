@@ -81,6 +81,7 @@ from repro_torch.obs.hist import HistConfig, HistState, init_hist, update_hist
 from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.probes import (
     ProbeConfig, ProbeState, init_probes, sample_probes)
+from repro_torch.obs.spans import span, tracing
 
 MAXE = 8  # max emissions per rank per (op, round)
 MASK32 = 0xFFFFFFFF
@@ -94,6 +95,10 @@ GRAPH_TICKS = 8
 # wrappers' counts around itself, and replicas on distinct cards run in
 # threads of their own (``Engine.prun``)
 _CAPTURE_LOCK = threading.Lock()
+# the tick's parts in order (``tick_batched``): with tracing on, the graphs
+# are captured with a timing event at each boundary (``RunStats``'
+# ``part_device_ms``)
+TICK_PARTS = ("emit", "demand", "route", "drain", "account", "skip")
 
 
 class JobTable(NamedTuple):
@@ -237,6 +242,12 @@ class RunStats:
     ``replay_device_ms`` is CUDA-event time around the replays.
     ``replicas`` holds each replica's own stats when the call was
     :meth:`Engine.prun` (:meth:`merged`), else nothing.
+
+    With tracing on (:func:`repro_torch.obs.tracing`), the card replays a
+    traced variant of each graph that times the tick's parts
+    (``TICK_PARTS``) by events inside the graph: ``part_device_ms`` sums
+    each part's device ms over the last replay of every chunk or window,
+    which hold ``part_ticks`` ticks. Otherwise both stay empty.
     """
 
     device: str
@@ -251,6 +262,8 @@ class RunStats:
     graph_calls: Dict[str, int] = field(default_factory=dict)
     graph_launches: Dict[str, int] = field(default_factory=dict)
     replay_device_ms: float = 0.0
+    part_device_ms: Dict[str, float] = field(default_factory=dict)
+    part_ticks: int = 0
     replicas: Tuple["RunStats", ...] = ()
 
     @classmethod
@@ -263,6 +276,10 @@ class RunStats:
         if any(p.graph_launches != first.graph_launches
                or p.graph_ticks != first.graph_ticks for p in parts):
             raise ValueError("replicas replayed graphs of other counts")
+        part_ms: Dict[str, float] = {}
+        for p in parts:
+            for k, v in p.part_device_ms.items():
+                part_ms[k] = part_ms.get(k, 0.0) + v
         return cls(
             device=device,
             ticks=sum(p.ticks for p in parts),
@@ -276,6 +293,8 @@ class RunStats:
             graph_calls=dict(first.graph_calls),
             graph_launches=dict(first.graph_launches),
             replay_device_ms=sum(p.replay_device_ms for p in parts),
+            part_device_ms=part_ms,
+            part_ticks=sum(p.part_ticks for p in parts),
             replicas=tuple(parts))
 
 
@@ -322,10 +341,15 @@ class Engine:
         per ``chunk`` ticks; the extra ticks of a finished member are
         exact no-ops, so ``chunk`` does not change the result. On the card
         the ticks are replays of a captured graph; on the CPU, eager."""
+        return self._run(state, chunk, time_parts=True)
+
+    def _run(self, state: "SimState", chunk: int,
+             time_parts: bool) -> "SimState":
+        # ``time_parts``: with tracing on, replay the traced variant
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         stats = RunStats(device=self.device.type)
-        out = self.run_fn(state, chunk, self.graphs, stats)
+        out = self.run_fn(state, chunk, self.graphs, stats, time_parts)
         self.last_run = stats
         return out
 
@@ -340,7 +364,16 @@ class Engine:
         at once, one host thread a device, all joined before a result is
         read; batches on one device share its engine (one captured graph
         and its buffers) and run in turn. ``last_run`` is the replicas'
-        stats merged (:meth:`RunStats.merged`)."""
+        stats merged (:meth:`RunStats.merged`).
+
+        Traced, the call is an ``engine.prun`` span and each device's turn
+        an ``engine.replica`` span in its thread, which ends with the
+        replica's ``replay_device_ms`` and ``wait_ms``, the time from its
+        end to the join. The replicas replay the plain graphs even then,
+        and time no tick part: capturing a traced variant on one card
+        while the others replay collides with a device-wide synchronize
+        from another thread (a profiler's start), which fails while a
+        stream captures."""
         groups: Dict[str, List[int]] = {}
         for d, s in enumerate(states):
             groups.setdefault(str(s.t.device), []).append(d)
@@ -349,21 +382,33 @@ class Engine:
                    for dev in groups}
         out: List[Optional[SimState]] = [None] * len(states)
         parts: List[Optional[RunStats]] = [None] * len(states)
+        ends: Dict[str, Tuple[float, object]] = {}
 
         def run_on(dev: str) -> None:
             eng = engines[dev]
-            with (torch.cuda.device(dev) if eng.device.type == "cuda"
-                  else contextlib.nullcontext()):
+            members = sum(int(states[d].t.shape[0]) for d in groups[dev])
+            with span("engine.replica", cat="engine", device=dev,
+                      members=members) as sp, \
+                    (torch.cuda.device(dev) if eng.device.type == "cuda"
+                     else contextlib.nullcontext()):
                 for d in groups[dev]:
-                    out[d] = eng.run(states[d], chunk)
+                    out[d] = eng._run(states[d], chunk, time_parts=False)
                     parts[d] = eng.last_run
+                sp.set(replay_device_ms=sum(parts[d].replay_device_ms
+                                            for d in groups[dev]))
+            ends[dev] = (time.perf_counter(), sp)
 
-        if len(groups) == 1:
-            run_on(next(iter(groups)))
-        else:
-            with ThreadPoolExecutor(len(groups)) as pool:
-                for f in [pool.submit(run_on, dev) for dev in groups]:
-                    f.result()
+        with span("engine.prun", cat="engine", replicas=len(groups)):
+            if len(groups) == 1:
+                run_on(next(iter(groups)))
+            else:
+                with ThreadPoolExecutor(len(groups)) as pool:
+                    for f in [pool.submit(run_on, dev) for dev in groups]:
+                        f.result()
+            joined = time.perf_counter()
+            # a span's record holds its handle's args: set after it ended
+            for end, sp in ends.values():
+                sp.set(wait_ms=(joined - end) * 1e3)
         self.last_run = RunStats.merged(self.device.type, parts)
         return out
 
@@ -550,6 +595,45 @@ class _TickGraph:
     instantiate_s: float
     t_stop: Optional[torch.Tensor] = None
     n0: Optional[torch.Tensor] = None
+    clock: Optional["_PartClock"] = None
+
+
+class _PartClock:
+    """Timing events at the boundaries of the tick's parts
+    (``TICK_PARTS``), recorded while a traced graph is captured: one row
+    of ``len(TICK_PARTS) + 1`` events a captured tick. They are nodes of
+    the graph (external event records), so after a replay they hold its
+    times; the eager step before a capture records none."""
+
+    def __init__(self):
+        self.rows: List[List["torch.cuda.Event"]] = []
+
+    def tick(self) -> None:
+        """The start of a tick."""
+        if torch.cuda.is_current_stream_capturing():
+            self.rows.append([])
+            self._record()
+
+    def __call__(self, part: str) -> None:
+        """The end of ``part``."""
+        if torch.cuda.is_current_stream_capturing():
+            if part != TICK_PARTS[len(self.rows[-1]) - 1]:
+                raise ValueError(f"tick part {part!r} out of order")
+            self._record()
+
+    def _record(self) -> None:
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        self.rows[-1].append(ev)
+
+    def read(self, stats: RunStats) -> None:
+        """Add the times of the graph's last replay, which has ended, to
+        ``stats``."""
+        for row in self.rows:
+            for part, a, b in zip(TICK_PARTS, row, row[1:]):
+                stats.part_device_ms[part] = (
+                    stats.part_device_ms.get(part, 0.0) + a.elapsed_time(b))
+        stats.part_ticks += len(self.rows)
 
 
 def member_live(state: SimState, horizon_us: float) -> torch.Tensor:
@@ -915,7 +999,8 @@ def build_engine(
         return member_live(s, horizon_us)
 
     def tick_batched(state: SimState, t_cap=math.inf,
-                     stop_m: Optional[torch.Tensor] = None) -> SimState:
+                     stop_m: Optional[torch.Tensor] = None,
+                     mark: Optional[_PartClock] = None) -> SimState:
         # ``t_cap`` (a scalar or a (B,) f32 tensor) clamps the PDES time
         # skip (step 7) for windowed runs: it enters the wake-up minimum
         # like a pending job's start, so a window boundary at an arrival
@@ -923,7 +1008,8 @@ def build_engine(
         # in the table. ``stop_m`` (B,) freezes members that reached their
         # window event (run_window). At the default t_cap=inf neither step
         # is taken: both would be exact no-ops, and ``run``'s tick stays
-        # as it was.
+        # as it was. ``mark`` (a traced graph's capture only) is called at
+        # the end of each of the tick's parts, ``TICK_PARTS``.
         jt = state.jobs
         t = state.t  # (B,)
         B = t.shape[0]
@@ -976,6 +1062,8 @@ def build_engine(
             dstn = (rnd % n_nodes).to(i32)
             ur_rand = _hash((rng_jobs[:, None] + pu_ids) & MASK32)
 
+        if mark is not None:
+            mark("emit")
         # injection always runs: for members (and jobs) with nothing to
         # send every candidate is masked, which is a bit-exact no-op, and
         # it saves the host sync a branch would cost. The link demand
@@ -989,6 +1077,8 @@ def build_engine(
             demand[:, :L] + torch.where(eff_f > 0.0, 0.0, 1e18).to(f32),
             demand[:, L:],
         ], dim=1)
+        if mark is not None:
+            mark("demand")
 
         pool, metrics = inject(
             pool, metrics, t,
@@ -1012,6 +1102,8 @@ def build_engine(
                     fire, ur_state.next_t + ur.interval_us, ur_state.next_t),
                 count=ur_state.count + fire.to(i32),
             )
+        if mark is not None:
+            mark("route")
 
         # --- 2-3. fused drain tick: demand -> fair share -> drain ->
         # delivery, plus per-link byte counters (the CUDA kernel) ---
@@ -1020,6 +1112,8 @@ def build_engine(
             pool.min_arrive, t, dt, bw_run, link_dstr,
             n_apps=n_apps, n_routers=R,
         )
+        if mark is not None:
+            mark("drain")
         # horizon-frozen members may still carry in-flight messages: their
         # drain results are discarded (the freeze in place of a select)
         new_rem = torch.where(live_m[:, None], new_rem, pool.bytes_rem)
@@ -1140,6 +1234,8 @@ def build_engine(
             link_bytes=link_bytes, router_win=router_win,
             router_wins=router_wins, win_idx=win_idx,
         )
+        if mark is not None:
+            mark("account")
 
         # --- 7. event-driven time skip (PDES hybrid): when the network is
         # empty and every live rank is inside a COMPUTE delay (or its job
@@ -1186,11 +1282,13 @@ def build_engine(
                 level_mask=probe_level_mask, level_bw=probe_level_bw,
                 n_apps=n_apps, pool_size=M,
             )
+        rng_out = torch.where(live_m, (rng2 + 1) & MASK32, rng)
+        if mark is not None:
+            mark("skip")
 
         return SimState(
             t=t_out, vms=vms, ur=ur_state, pool=pool,
-            metrics=metrics,
-            rng=torch.where(live_m, (rng2 + 1) & MASK32, rng),
+            metrics=metrics, rng=rng_out,
             jobs=jt, ur_nodes=state.ur_nodes, probes=probes_st,
             hist=hist_st, faults=state.faults,
         )
@@ -1351,86 +1449,121 @@ def build_engine(
             capture_s=t1 - t0, instantiate_s=t2 - t1, **buffers)
 
     def load_graph(kind, n, state: SimState, graphs, stats: RunStats,
-                   make) -> _TickGraph:
+                   make, time_parts: bool = True) -> _TickGraph:
         """The graph of ``kind`` for ``state``'s shape (captured by
-        ``make`` on a miss), with ``state`` copied into its buffers."""
+        ``make`` on a miss), with ``state`` copied into its buffers. With
+        tracing on and ``time_parts``, the graph's traced variant, keyed
+        apart, which times the tick's parts."""
+        traced = time_parts and tracing()
         key = (kind, n) + tuple(tuple(x.shape) for x in _leaves(state))
-        tg = graphs.get(key)
-        if tg is None:
-            tg = make(state, n)
-            graphs[key] = tg
-            stats.captured = True
-        stats.graph_ticks = n
-        stats.capture_s, stats.instantiate_s = tg.capture_s, tg.instantiate_s
-        stats.graph_calls, stats.graph_launches = tg.calls, tg.launches
-        for dst, src in zip(_leaves(tg.static), _leaves(state)):
-            dst.copy_(src)
+        if traced:
+            key += ("traced",)
+        with span("engine.graph_load", cat="engine", kind=kind,
+                  traced=traced) as sp:
+            tg = graphs.get(key)
+            sp.set(captured=tg is None)
+            if tg is None:
+                tg = make(state, n, _PartClock() if traced else None)
+                graphs[key] = tg
+                stats.captured = True
+            stats.graph_ticks = n
+            stats.capture_s = tg.capture_s
+            stats.instantiate_s = tg.instantiate_s
+            stats.graph_calls, stats.graph_launches = tg.calls, tg.launches
+            for dst, src in zip(_leaves(tg.static), _leaves(state)):
+                dst.copy_(src)
         return tg
 
-    def capture_run(state: SimState, n: int) -> _TickGraph:
+    def capture_run(state: SimState, n: int,
+                    clock: Optional[_PartClock]) -> _TickGraph:
         flag = torch.zeros((), dtype=torch.bool, device=dev)
-        return capture(state, n, tick_batched,
-                       lambda s: flag.copy_(live(s).any()), flag)
+        step = tick_batched
+        if clock is not None:
+            def step(s):
+                clock.tick()
+                return tick_batched(s, mark=clock)
+
+        return capture(state, n, step,
+                       lambda s: flag.copy_(live(s).any()), flag,
+                       clock=clock)
 
     def replay(tg: _TickGraph, reps: int, stats: RunStats, more) -> None:
         """Replay ``tg``'s graph ``reps`` times between host reads of
         ``more()`` until it says stop; the replays' CUDA-event time goes
-        into ``stats``."""
+        into ``stats``, and a traced graph's part times after each
+        read."""
         events = []
         while True:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(reps):
-                tg.graph.replay()
-            b.record()
-            events.append((a, b))
-            stats.replays += reps
-            stats.liveness_reads += 1
-            if not more():
+            with span("engine.chunk", cat="engine", replays=reps) as sp:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(reps):
+                    tg.graph.replay()
+                b.record()
+                events.append((a, b))
+                stats.replays += reps
+                stats.liveness_reads += 1
+                go = more()
+                if tg.clock is not None:
+                    tg.clock.read(stats)
+                    sp.set(device_ms=a.elapsed_time(b))
+            if not go:
                 break
         stats.replay_device_ms = sum(a.elapsed_time(b) for a, b in events)
 
-    def run_graphs(state: SimState, chunk: int, graphs,
-                   stats: RunStats) -> SimState:
+    def clone_out(tg: _TickGraph) -> SimState:
+        # a copy: the next call overwrites the static buffers
+        with span("engine.unstack", cat="engine",
+                  members=int(tg.static.t.shape[0])):
+            return _tree_map(torch.clone, tg.static)
+
+    def run_graphs(state: SimState, chunk: int, graphs, stats: RunStats,
+                   time_parts: bool) -> SimState:
         n = math.gcd(chunk, GRAPH_TICKS)
-        tg = load_graph("run", n, state, graphs, stats, capture_run)
+        tg = load_graph("run", n, state, graphs, stats, capture_run,
+                        time_parts)
         stats.liveness_reads += 1
         if bool(live(tg.static).any()):
             replay(tg, chunk // n, stats, lambda: bool(tg.flag))
         stats.ticks = stats.replays * n
-        # a copy: the next call overwrites the static buffers
-        return _tree_map(torch.clone, tg.static)
+        return clone_out(tg)
 
-    def run_batched(state: SimState, chunk: int, graphs, stats: RunStats):
+    def run_batched(state: SimState, chunk: int, graphs, stats: RunStats,
+                    time_parts: bool):
         if dev.type == "cuda":
-            return run_graphs(state, chunk, graphs, stats)
+            return run_graphs(state, chunk, graphs, stats, time_parts)
         while True:
             stats.liveness_reads += 1
             if not bool(live(state).any()):
                 return state
-            for _ in range(chunk):
-                state = tick_batched(state)
+            with span("engine.chunk", cat="engine", ticks=chunk):
+                for _ in range(chunk):
+                    state = tick_batched(state)
             stats.ticks += chunk
 
     def stopped(s: SimState, t_stop, n0):
         return window_stopped(s, t_stop, n0, horizon_us)
 
-    def capture_window(state: SimState, n: int) -> _TickGraph:
+    def capture_window(state: SimState, n: int,
+                       clock: Optional[_PartClock]) -> _TickGraph:
         B = state.t.shape[0]
         t_stop = torch.full((B,), math.inf, dtype=f32, device=dev)
         n0 = done_slots(state).clone()
         flag = torch.zeros((2,), dtype=i64, device=dev)
 
         def step(s):
+            if clock is not None:
+                clock.tick()
             stop = stopped(s, t_stop, n0)
             flag[1:].add_((~stop).any().to(i64))  # a tick with a member live
-            return tick_batched(s, t_stop, stop_m=stop)
+            return tick_batched(s, t_stop, stop_m=stop, mark=clock)
 
         def finish(s):
             flag[:1].copy_((~stopped(s, t_stop, n0)).any().to(i64))
 
-        return capture(state, n, step, finish, flag, t_stop=t_stop, n0=n0)
+        return capture(state, n, step, finish, flag, t_stop=t_stop, n0=n0,
+                       clock=clock)
 
     def window_graphs(state: SimState, t_stop, graphs,
                       stats: RunStats) -> SimState:
@@ -1447,8 +1580,7 @@ def build_engine(
 
             replay(tg, 1, stats, more)
         stats.ticks = stats.replays * n
-        # a copy: the next call overwrites the static buffers
-        return _tree_map(torch.clone, tg.static)
+        return clone_out(tg)
 
     def window_batched(state: SimState, t_stop, graphs, stats: RunStats):
         B = state.t.shape[0]

@@ -18,9 +18,16 @@ structured JSONL run log.
 
 Spans are thread-safe: each thread gets its own Chrome ``tid`` row, and
 event recording takes one lock around a list append.
+
+While a ``torch.profiler`` profile is active, an enabled span also opens
+``torch.profiler.record_function(name)``, so that it shows in the
+profile beside the device's kernels, on the profile's clock. The profiler
+records only the threads it records (the one that started it, unless
+configured for all threads); on any other the label is dropped.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from contextlib import contextmanager
@@ -147,6 +154,7 @@ def span(name: str, /, cat: str = "host", **args):
         yield _NULL_SPAN
         return
     handle = SpanHandle(dict(args))
+    label = _profiler_label(name)
     t0 = time.perf_counter_ns()
     c0 = time.process_time_ns()
     try:
@@ -154,7 +162,21 @@ def span(name: str, /, cat: str = "host", **args):
     finally:
         dur = time.perf_counter_ns() - t0
         cpu = time.process_time_ns() - c0
+        if label is not None:
+            label.__exit__(None, None, None)
         tr.record(name, cat, t0, dur, cpu, handle.args)
+
+
+def _profiler_label(name: str):
+    """``torch.profiler.record_function(name)``, entered, while a torch
+    profile is active; else None. Torch is not imported here: with no
+    torch loaded, no profile can be active."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    label = prof.record_function(name)
+    label.__enter__()
+    return label
 
 
 def counter(name: str, **values: float) -> None:

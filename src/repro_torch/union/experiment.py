@@ -643,7 +643,9 @@ def _engine_totals() -> Dict[str, Any]:
 def _add_run(tot: Dict[str, Any], st) -> None:
     """Add one ``run`` or ``run_window`` call's
     :class:`~repro_torch.netsim.engine.RunStats`: on the card a call's
-    kernel launches are its replays times its graph's captured launches."""
+    kernel launches are its replays times its graph's captured launches.
+    A traced call's part times add ``part_device_ms`` and ``part_ticks``,
+    which are absent otherwise."""
     tot["calls"] += 1
     tot["ticks"] += st.ticks
     tot["live_ticks"] += st.live_ticks
@@ -653,6 +655,11 @@ def _add_run(tot: Dict[str, Any], st) -> None:
     tot["replay_device_ms"] += st.replay_device_ms
     for k, v in st.graph_launches.items():
         tot["launches"][k] = tot["launches"].get(k, 0) + st.replays * v
+    if st.part_ticks:
+        parts = tot.setdefault("part_device_ms", {})
+        for k, v in st.part_device_ms.items():
+            parts[k] = parts.get(k, 0.0) + v
+        tot["part_ticks"] = tot.get("part_ticks", 0) + st.part_ticks
 
 
 def _add_windows(tot: Dict[str, Any], ew: Dict[str, Any]) -> None:
@@ -743,7 +750,7 @@ def _exec_batched(node, exp: Experiment, device,
     timed_ix = [i for i, c in enumerate(node.cells)
                 if c.failure is not None and c.failure.has_timed_events]
     plain_ix = [i for i in range(n) if i not in set(timed_ix)]
-    t0 = time.time()
+    t0 = time.perf_counter()
     states: List[Any] = [None] * n
     # cold = this node built its engine, so the run below captures its
     # graphs on the card; warm = the engine already existed in this
@@ -759,18 +766,26 @@ def _exec_batched(node, exp: Experiment, device,
                 # members split across the devices: each runs an
                 # (n/D)-batch on the engine's replica there
                 chunk = np_ // D
-                finals = eng.prun([
-                    state_to(stack_members(p_inits[d * chunk:
-                                                   (d + 1) * chunk]), dev)
-                    for d, dev in enumerate(devs)])
+                batches = []
+                for d, dev in enumerate(devs):
+                    with span("engine.stack", cat="engine", members=chunk,
+                              device=str(dev)):
+                        batches.append(state_to(stack_members(
+                            p_inits[d * chunk:(d + 1) * chunk]), dev))
+                finals = eng.prun(batches)
                 _add_run(tot, eng.last_run)
-                p_states = [member_state(finals[i // chunk], i % chunk)
-                            for i in range(np_)]
+                with span("engine.unstack", cat="engine", members=np_):
+                    p_states = [member_state(finals[i // chunk], i % chunk)
+                                for i in range(np_)]
             elif exp.vmapped:
                 # every plain member in one stacked batch on the device
-                final = eng.run(stack_members(p_inits))
+                with span("engine.stack", cat="engine", members=np_,
+                          device=str(eng.device)):
+                    batch = stack_members(p_inits)
+                final = eng.run(batch)
                 _add_run(tot, eng.last_run)
-                p_states = [member_state(final, i) for i in range(np_)]
+                with span("engine.unstack", cat="engine", members=np_):
+                    p_states = [member_state(final, i) for i in range(np_)]
             else:
                 p_states = []
                 for s in p_inits:
@@ -784,7 +799,7 @@ def _exec_batched(node, exp: Experiment, device,
                 [node.cells[i] for i in timed_ix], host, tot)
             for i, st in zip(timed_ix, f_states):
                 states[i] = st
-    wall = time.time() - t0
+    wall = time.perf_counter() - t0
 
     out = []
     for cell, st in zip(node.cells, states):
@@ -1066,36 +1081,39 @@ def run(experiment, plan=None, store=None, cancel=None,
                 builds=stats1["builds"] - stats0["builds"],
             ),
         )
-        res.summary = results_summary(res)
+        with span("union.summarize", cat="run"):
+            res.summary = results_summary(res)
 
-        # process-plane metrics: this run's contribution to the registry
-        reg.counter("union_experiments",
-                    "experiment facade runs").inc()
-        reg.counter("union_cells_completed",
-                    "experiment cells executed").inc(len(cells))
-        reg.counter("union_engine_cache_hits",
-                    "engine-cache hits").inc(res.engine_cache["hits"])
-        reg.counter("union_engine_cache_builds",
-                    "engine builds").inc(res.engine_cache["builds"])
-        if store is not None:
-            reg.counter("union_store_hits",
-                        "cells recovered from the experiment store"
-                        ).inc(store_hits)
-            reg.counter("union_store_misses",
-                        "cells simulated and persisted to the store"
-                        ).inc(store_misses)
-        trace_cells = [c for c in cells if "windows" in c.report]
-        reg.counter("union_window_rounds",
-                    "scheduler window rounds executed").inc(
-            sum(int(c.report.get("windows", 0)) for c in trace_cells))
-        reg.gauge("union_last_run_wall_seconds",
-                  "wall time of the most recent run()").set(res.wall_s)
-        t_wall = sum(float(c.report.get("wall_s", 0.0)) for c in trace_cells)
-        if t_wall > 0:
-            reg.gauge("union_trace_jobs_per_sec",
-                      "rolling trace throughput of the last run").set(
-                sum(int(c.report.get("jobs", 0)) for c in trace_cells)
-                / t_wall)
+            # process-plane metrics: this run's contribution to the
+            # registry
+            reg.counter("union_experiments",
+                        "experiment facade runs").inc()
+            reg.counter("union_cells_completed",
+                        "experiment cells executed").inc(len(cells))
+            reg.counter("union_engine_cache_hits",
+                        "engine-cache hits").inc(res.engine_cache["hits"])
+            reg.counter("union_engine_cache_builds",
+                        "engine builds").inc(res.engine_cache["builds"])
+            if store is not None:
+                reg.counter("union_store_hits",
+                            "cells recovered from the experiment store"
+                            ).inc(store_hits)
+                reg.counter("union_store_misses",
+                            "cells simulated and persisted to the store"
+                            ).inc(store_misses)
+            trace_cells = [c for c in cells if "windows" in c.report]
+            reg.counter("union_window_rounds",
+                        "scheduler window rounds executed").inc(
+                sum(int(c.report.get("windows", 0)) for c in trace_cells))
+            reg.gauge("union_last_run_wall_seconds",
+                      "wall time of the most recent run()").set(res.wall_s)
+            t_wall = sum(float(c.report.get("wall_s", 0.0))
+                         for c in trace_cells)
+            if t_wall > 0:
+                reg.gauge("union_trace_jobs_per_sec",
+                          "rolling trace throughput of the last run").set(
+                    sum(int(c.report.get("jobs", 0)) for c in trace_cells)
+                    / t_wall)
     res.telemetry = dict(
         # this run's spans only (the tracer is process-wide)
         spans=(summarize(get_tracer().events[ev0:]) if tracing() else {}),

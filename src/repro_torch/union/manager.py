@@ -35,6 +35,7 @@ from repro_torch.netsim.placement import place_jobs
 from repro_torch.netsim.state_io import state_to_numpy
 from repro_torch.netsim.topology import Fabric, get_topology
 from repro_torch.obs.probes import probe_timelines
+from repro_torch.obs.spans import span
 from repro_torch.union.scenario import Scenario, ScenarioJob, UR_RANKS
 from repro_torch.union.seeds import engine_seed
 
@@ -212,25 +213,28 @@ def member_report(state, rs: ResolvedScenario, wall_s: float = 0.0,
     differs from the scenario's (e.g. the experiment's arrival jitter);
     ``capacity`` is the engine envelope the state was simulated under
     (defaults to the scenario's own)."""
-    state = state_to_numpy(state)
-    cap = capacity or rs.capacity
-    names = rs.padded_app_names(cap)
-    rep = MET.run_report(state, names, rs.topo, rs.net, wall_s,
-                         strict=strict)
-    sc = rs.scenario
-    rep["config"] = dict(
-        workload=sc.name, topo=sc.topo, placement=sc.placement,
-        routing=sc.routing, scale=sc.scale, seed=seed, ranks=rs.job_sizes,
-        start_us=[float(s) for s in (start_us if start_us is not None
-                                     else rs.start_us)],
-        all_done=[
-            bool(job_vm(state, ji).done.all()) for ji in range(len(rs.jobs))
-        ],
-        envelope=dict(Jmax=cap.Jmax, Pmax=cap.Pmax, OPmax=cap.OPmax),
-    )
-    if state.probes is not None:
-        rep["probes"] = probe_timelines(
-            state.probes, list(rs.topo.link_levels()), names)
+    with span("union.member_report", cat="run", seed=seed):
+        state = state_to_numpy(state)
+        cap = capacity or rs.capacity
+        names = rs.padded_app_names(cap)
+        rep = MET.run_report(state, names, rs.topo, rs.net, wall_s,
+                             strict=strict)
+        sc = rs.scenario
+        rep["config"] = dict(
+            workload=sc.name, topo=sc.topo, placement=sc.placement,
+            routing=sc.routing, scale=sc.scale, seed=seed,
+            ranks=rs.job_sizes,
+            start_us=[float(s) for s in (start_us if start_us is not None
+                                         else rs.start_us)],
+            all_done=[
+                bool(job_vm(state, ji).done.all())
+                for ji in range(len(rs.jobs))
+            ],
+            envelope=dict(Jmax=cap.Jmax, Pmax=cap.Pmax, OPmax=cap.OPmax),
+        )
+        if state.probes is not None:
+            rep["probes"] = probe_timelines(
+                state.probes, list(rs.topo.link_levels()), names)
     return rep
 
 

@@ -19,6 +19,12 @@ background, the second job arriving at 700 µs) and a three-job trace:
 * an engine evicted from the engine cache frees its graphs; engines bound
   to a scenario's jobs share the cached engine's graphs, and clearing the
   cache frees them;
+* with tracing on, ``run`` and ``run_window`` replay a traced variant of
+  the graph whose events time the tick's six parts: its state is the
+  plain graph's, every part reads above 0, their sum a tick is within
+  10 % of the replays' device time a tick, and the plain graph replays
+  again once tracing is off; ``Engine.prun`` replays the plain graph
+  with tracing on;
 * a window capture that fails raises; ``run_window`` never steps the
   ticks eagerly on the card.
 """
@@ -211,6 +217,67 @@ def test_bound_engines_share_the_cached_graphs(card, fresh_cache):
     ENG.clear_engine_cache()
     gc.collect()
     assert b.graphs == {} and static() is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["run", "window"])
+def test_traced_graph_times_the_parts_and_keeps_the_bits(card, kind):
+    """With tracing on, ``run`` and ``run_window`` replay a traced variant
+    of the graph, keyed apart, whose events time the tick's parts; its
+    final state is the plain graph's, and with tracing off again the
+    plain graph replays."""
+    from repro_torch import obs
+
+    rs, eng, seed = _mix(card)
+    st = ENG.stack_members([eng.init_state(seed=seed + i) for i in range(3)])
+
+    def call():
+        if kind == "run":
+            return eng.run(st), eng.last_run
+        return eng.run_window(st, np.float32(2500.0)), eng.last_window
+
+    plain, ps = call()
+    keys, launches = set(eng.graphs), ps.graph_launches
+    assert ps.part_device_ms == {} and ps.part_ticks == 0
+    obs.enable()
+    try:
+        traced, ts = call()
+    finally:
+        obs.disable()
+        obs.get_tracer().clear()
+    assert_same_window(traced, plain)
+    assert ts.captured and ts.graph_launches == launches
+    assert set(eng.graphs) - keys == {k + ("traced",) for k in keys}
+    assert set(ts.part_device_ms) == set(ENG.TICK_PARTS)
+    assert all(v > 0 for v in ts.part_device_ms.values()), ts.part_device_ms
+    assert ts.part_ticks % ENG.GRAPH_TICKS == 0 and ts.part_ticks > 0
+    per_tick = sum(ts.part_device_ms.values()) / ts.part_ticks
+    assert per_tick == pytest.approx(ts.replay_device_ms / ts.ticks, rel=0.1)
+    again, ag = call()
+    assert not ag.captured and ag.part_ticks == 0
+    assert ag.graph_launches == launches
+    assert_same_window(again, plain)
+
+
+@pytest.mark.cuda
+def test_traced_split_replays_the_plain_graph(card):
+    """``Engine.prun`` captures no traced variant, tracing on or off: its
+    replicas replay while other cards would capture."""
+    from repro_torch import obs
+
+    rs, eng, seed = _mix(card)
+    st = ENG.stack_members([eng.init_state(seed=seed + i) for i in range(2)])
+    plain = eng.prun([st])[0]
+    keys = set(eng.graphs)
+    obs.enable()
+    try:
+        traced = eng.prun([st])[0]
+    finally:
+        obs.disable()
+        obs.get_tracer().clear()
+    assert set(eng.graphs) == keys
+    assert not eng.last_run.captured and eng.last_run.part_ticks == 0
+    assert_same_window(traced, plain)
 
 
 @pytest.mark.cuda
