@@ -7,7 +7,7 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; exits non-zero without them. Every phase prints one JSON line with
 its seconds, and any failure raises (non-zero exit, no result line):
 
-1. build the five CUDA sources of ``src/repro_torch/kernels/csrc/`` for
+1. build the six CUDA sources of ``src/repro_torch/kernels/csrc/`` for
    ``sm_90a``, one ``nvcc`` each, all started together; print each one's
    ``-Xptxas -v`` report and the card's name and power limit, in the
    build line and on a line of its own as ``nvidia-smi`` gives them;
@@ -136,7 +136,17 @@ its seconds, and any failure raises (non-zero exit, no result line):
    with one submission through the client and one cancellation; the
    CLI's result file and the server's Results equal ``union.run`` of the
    same spec; the seconds of each;
-   then the paper-scale 2D dragonfly (workload3) as in 7, shorter;
+   then the paper-scale 2D dragonfly (workload3) as in 7, shorter (in
+   7 and here the injection kernel's launches equal the ticks; on the
+   fat tree and the torus it is never called);
+   ``inject``: the injection kernel alone on both paper dragonflies'
+   live pools (tick 10, batches of 1 and 8 copies of the member), its
+   recorded arguments of the next tick and the same tick with every job
+   candidate emitted: every written pool leaf and the tally of
+   candidates seen and routed equal to the plain version's on the card,
+   the peak's difference as ``max_abs_err``, the kernel's device time as
+   a graph of 20
+   calls beside the byte bound, the plain version's time;
 9. Mamba-2 370M at full width (48 layers, seeded random weights, float32
    weights, bfloat16 compute) through ``make_prefill_step`` on 8 requests
    x 4,096 tokens, counted like the simulator: prefill tokens per second,
@@ -266,7 +276,7 @@ PAPER_FABRICS = (
 CARD_VS_CPU_TICKS = 128
 FABRIC_CARD_VS_CPU_TICKS = 64
 KERNEL_SOURCES = ("drain_tick", "link_demand", "router_tick", "ssd_scan",
-                  "ssd_scan_bwd")
+                  "ssd_scan_bwd", "inject")
 # the SSD kernel's tolerance against its plain version: an output sums
 # Q * ds = 16,384 float32 products whose partial sums are as large as the
 # largest output, so rounding error scales with max|plain|
@@ -1232,6 +1242,12 @@ def phase_paper(name, cfg, dev, phase=None, cpu_ticks=CARD_VS_CPU_TICKS):
          and counted["launches"]["router_rate_drain"]
          == counted["calls"]["router_rate_drain"],
          f"{name}: route-rate-drain launches != calls")
+    # a dragonfly injects through the kernel once a tick; the fat tree and
+    # the torus route in the plain injection and never call it
+    want_inject = ticks if cfg["topo"] in ("1d", "2d") else 0
+    need(launches["inject"] == calls["inject"] == want_inject,
+         f"{name}: {launches['inject']} inject launches for "
+         f"{calls['inject']} calls and {ticks} ticks")
     need(rep["dropped"] == 0, f"{name}: {rep['dropped']} messages dropped")
     delivered = {app: v.get("count", 0) for app, v in rep["latency"].items()}
 
@@ -1377,6 +1393,7 @@ def phase_paper(name, cfg, dev, phase=None, cpu_ticks=CARD_VS_CPU_TICKS):
     return dict(drain_tick=launches["drain_tick"],
                 link_demand=launches["link_demand"],
                 router_rate_drain=launches["router_rate_drain"],
+                inject=launches["inject"],
                 router_live=dict(
                     tick=sampled[0]["tick"], active=sampled[0]["active"],
                     ms=sampled[0]["live_ms"]["router_rate_drain"]),
@@ -1387,6 +1404,113 @@ def phase_paper(name, cfg, dev, phase=None, cpu_ticks=CARD_VS_CPU_TICKS):
                 link_demand_max_abs_err=max(
                     s["route_parity"]["demand_max_abs_err"]
                     for s in sampled)), delivered
+
+
+def recorded_inject(eng, st):
+    """The arguments of the engine's ``KOPS.inject`` call in one eager
+    tick from ``st`` (the tick's candidates, demand and pool)."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    wrapper = ops.inject
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return wrapper(*args, **kw)
+
+    ops.inject = record
+    try:
+        eng.tick(st)
+    finally:
+        ops.inject = wrapper
+    need(len(seen) == 1, f"inject: {len(seen)} calls in one tick")
+    return seen[0]
+
+
+def inject_bound_ms(args, routed):
+    """The least time for one injection: each batch's emission flags read
+    once and its injected bytes written once (4 B a candidate each), a
+    routed candidate's other inputs read once (28 B) and its pool row
+    written (69 B), every written pool leaf copied once (69 B a slot read
+    and written), at the HBM rate. Returns (ms, bytes)."""
+    pool, _, _, batches = args[:4]
+    B, M = pool.active.shape
+    cands = sum(c.dst_rank.numel() for c in batches)
+    moved = 8 * cands + (28 + 69) * routed + 2 * 69 * B * M
+    return moved / HBM_BYTES_PER_S * 1e3, moved
+
+
+def phase_inject(dev, cfgs=(PAPER_1D, PAPER_2D), members=(1, 8), at=10):
+    """``inject``: the injection kernel alone on the paper dragonflies'
+    live pools. Each engine ticks ``at`` ticks eagerly from seed 0 (a
+    batch of ``members`` copies of the member), then the next tick's
+    ``KOPS.inject`` arguments are recorded; the kernel's result equals the
+    plain version's on the card (every written leaf and the tally of
+    candidates seen and routed bit for bit, the peak to rtol 1e-4; a row's
+    ``max_abs_err`` is the peak's difference, the leaves' being 0), and
+    both are timed there (the kernel as a CUDA graph of 20 calls,
+    ``device_ms``), on that tick and on the same tick with every job
+    candidate emitted, beside the byte bound."""
+    import torch
+
+    from repro_torch.kernels.inject import (
+        POOL_ROWS, inject_batches_plain, inject_cuda)
+    from repro_torch.netsim.engine import stack_members
+    from repro_torch.union.seeds import engine_seed
+
+    t0 = time.perf_counter()
+    rows = []
+    for cfg in cfgs:
+        rs, eng, _ = paper_engine(cfg, dev)
+        st = eng.init_state(seed=engine_seed(0))
+        for _ in range(at):
+            st = eng.tick(st)
+        for B in members:
+            args, kw = recorded_inject(eng, stack_members([st] * B))
+            pool, batches = args[0], tuple(args[3])
+            jobs = batches[0]._replace(
+                dst_rank=batches[0].dst_rank.clamp(min=0))
+            full_args = args[:3] + ((jobs,) + batches[1:],) + args[4:]
+            for what, a in (("live", args), ("all_emit", full_args)):
+                tally = [torch.zeros(2, dtype=torch.int64, device=dev)
+                         for _ in range(2)]
+                got = inject_cuda(*a, **dict(kw, counts=tally[0]))
+                want = inject_batches_plain(*a, **dict(kw, counts=tally[1]))
+                for k in POOL_ROWS + ("free_top", "dropped"):
+                    need(torch.equal(getattr(got[0], k),
+                                     getattr(want[0], k)),
+                         f"inject {cfg['topo']} B={B} {what}: {k} differs "
+                         "from the plain version")
+                need(torch.equal(*tally),
+                     f"inject {cfg['topo']} B={B} {what}: counts "
+                     f"{tally[0].tolist()} against {tally[1].tolist()}")
+                torch.testing.assert_close(
+                    got[1].peak_inject, want[1].peak_inject, rtol=1e-4,
+                    atol=0.0)
+                routed = int((pool.free_top - got[0].free_top).sum())
+                need(tally[0].tolist()[1] == routed,
+                     f"inject {cfg['topo']} B={B} {what}: counted "
+                     f"{tally[0].tolist()[1]} routed, not {routed}")
+                bound_ms, moved = inject_bound_ms(a, routed)
+                row = dict(
+                    topo=cfg["topo"], members=B, tick=at, case=what,
+                    candidates=sum(c.dst_rank.numel() for c in a[3]),
+                    emitted=sum(int((c.dst_rank >= 0).sum()) for c in a[3]),
+                    routed=routed,
+                    max_abs_err=float((got[1].peak_inject
+                                       - want[1].peak_inject).abs().max()),
+                    ms=device_ms(lambda: inject_cuda(*a, **kw)),
+                    bound_ms=bound_ms, bound_by="bytes", bytes=moved)
+                if what == "live":
+                    row["plain_ms"] = time_ms(
+                        lambda: inject_batches_plain(*a, **kw), reps=3,
+                        warmup=1)
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                rows.append(row)
+        del eng, st
+        free_engines()
+    emit(dict(phase="inject", seconds=time.perf_counter() - t0, rows=rows))
+    return rows
 
 
 def timed_run(eng, state):
@@ -1975,7 +2099,8 @@ def phase_experiment(dev):
         format_results=union.format_results(res).splitlines(),
         outage_interference=matrix))
     return {k: sum(t["launches"].get(k, 0) for t in eng_tot.values())
-            for k in ("drain_tick", "link_demand", "router_rate_drain")}
+            for k in ("drain_tick", "link_demand", "router_rate_drain",
+                      "inject")}
 
 
 # ---------------------------------------------------------------------------
@@ -2113,7 +2238,8 @@ def phase_member_split(dev):
                 bit += len(same)
                 not_bit += [f"{got.key}:{p}" for p in w if p not in same]
             split_launches[label] = {k: tot["launches"].get(k, 0)
-                                     for k in ("drain_tick", "link_demand")}
+                                     for k in ("drain_tick", "link_demand",
+                                               "inject")}
             rows[label] = dict(row, replicas=replicas,
                                report_leaves=leaves, bit_for_bit=bit,
                                not_bit_for_bit=not_bit[:40])
@@ -3465,6 +3591,7 @@ def run_phases(dev, dry, t0) -> int:
     free_engines()
     launches2, _ = phase_paper("paper_2d", PAPER_2D, dev)
     free_engines()
+    inject_rows = phase_inject(dev)
     params, cfg, lm_launches = phase_lm_prefill(dev)
     phase_lm_serve(params, cfg, dev)
     del params
@@ -3524,6 +3651,20 @@ def run_phases(dev, dry, t0) -> int:
              ms=dem["kernel_ms"], plain_ms=dem["plain_ms"],
              bound_ms=dem["bound_ms"], bound_by=dem["bound_by"],
              library_ms=dem["library_ms"]),
+        dict(name="inject", route="cuda",
+             source="src/repro_torch/kernels/csrc/inject.cu",
+             replaces="src/repro/netsim/engine.py:634",
+             tpu=None,  # the reference's jnp injection, not a TPU kernel
+             launches=launches1["inject"] + launches2["inject"],
+             experiment_launches=experiment_launches["inject"],
+             split_launches=split_launches["inject"],
+             fabric_launches={f: v["inject"]
+                              for f, v in fabric_launches.items()},
+             max_abs_err=max(r["max_abs_err"] for r in inject_rows),
+             ms=inject_rows[0]["ms"],
+             plain_ms=inject_rows[0]["plain_ms"],
+             bound_ms=inject_rows[0]["bound_ms"], bound_by="bytes",
+             library_ms=None, rows=inject_rows),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:59",

@@ -14,7 +14,9 @@ launches the call takes (a drain tick: zero, count, drain; link demand:
 zero, count, alloc, place, fold; an SSD scan: the C Bᵀ pre-pass and the
 scan; its backward: four, C Bᵀ, the states and dh per row over the
 chunks, the main pass per row and chunk, and the sums of dA over the
-chunks and of dB and dC over a group's rows; a route-rate-drain: one).
+chunks and of dB and dC over a group's rows; a route-rate-drain: one;
+an injection: a copy of the pool's leaves, then a count and an injection
+for each batch of candidates).
 The SSD scan's backward is called by autograd, from the backward of a
 scan that ran on the card. A run on the card that went through the
 kernels every time shows ``LAUNCHES == CALLS``; :func:`reset_launches`
@@ -27,6 +29,7 @@ from typing import Dict
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.drain_tick import drain_tick_cuda, drain_tick_plain
+from repro_torch.kernels.inject import inject_batches_plain, inject_cuda
 from repro_torch.kernels.link_demand import (
     link_demand_cuda, link_demand_plain)
 from repro_torch.kernels.router_tick import (
@@ -35,7 +38,7 @@ from repro_torch.kernels.ssd_scan import (
     SSDScan, ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_plain)
 
 KERNELS = ("drain_tick", "link_demand", "router_rate_drain", "ssd_scan",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "inject")
 CALLS: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -83,6 +86,19 @@ def link_demand(routes, active, bytes_rem, n_links: int):
     See :mod:`repro_torch.kernels.link_demand`."""
     return _dispatch("link_demand", routes.device, link_demand_plain,
                      link_demand_cuda, routes, active, bytes_rem, n_links)
+
+
+def inject(pool, metrics, t, batches, demand, tables, *, adaptive: bool,
+           hop_latency_us: float, n_jobs: int, counts=None):
+    """A tick's injection into a dragonfly engine's pool: each batch of
+    candidates (:class:`~repro_torch.kernels.inject.Candidates`, the
+    jobs' then UR's) in turn, against the link demand ``demand`` (B, L+1).
+    Returns the new pool and metrics (``peak_inject``); adds the
+    candidates seen and routed to ``counts`` where given. See
+    :mod:`repro_torch.kernels.inject`."""
+    return _dispatch("inject", pool.active.device, inject_batches_plain,
+                     inject_cuda, pool, metrics, t, tuple(batches), demand,
+                     tables, adaptive, hop_latency_us, n_jobs, counts)
 
 
 def router_rate_drain(routes, bytes_rem, active, share, dt):

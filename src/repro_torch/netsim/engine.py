@@ -7,7 +7,9 @@ The PyTorch counterpart of the JAX package's ``netsim/engine.py``. One
      send/recv thresholds; collectives are expanded algorithmically
      (ring / recursive-doubling / binomial).
   2. **Injection**: emitted messages get pool slots (stack allocator),
-     routes (MIN or adaptive, live link demand) and latency floors.
+     routes (MIN or adaptive, live link demand) and latency floors
+     (:mod:`repro_torch.kernels.inject`: on the card a dragonfly's is a
+     CUDA kernel that routes only the messages given a slot).
   3. **Network**: fluid fair-share wormhole model — the fused drain tick
      (:mod:`repro_torch.kernels.ops`, a CUDA kernel on the card).
   4. **Bookkeeping**: deliveries unblock VMs; latency histograms, per-app
@@ -73,9 +75,11 @@ import torch
 
 from repro_torch.core.skeleton import OP, SkeletonProgram
 from repro_torch.device import resolve_device
+from repro_torch.kernels import inject as KINJ
 from repro_torch.kernels import ops as KOPS
 from repro_torch.netsim.config import NetConfig
 from repro_torch.netsim.fabric import Fabric, routing_tables
+from repro_torch.netsim.flat import flat_add, flat_reduce, flat_set
 from repro_torch.netsim.faults import FaultState
 from repro_torch.obs.hist import HistConfig, HistState, init_hist, update_hist
 from repro_torch.obs.metrics import get_registry
@@ -247,7 +251,11 @@ class RunStats:
     traced variant of each graph that times the tick's parts
     (``TICK_PARTS``) by events inside the graph: ``part_device_ms`` sums
     each part's device ms over the last replay of every chunk or window,
-    which hold ``part_ticks`` ticks. Otherwise both stay empty.
+    which hold ``part_ticks`` ticks, and ``inject_candidates`` and
+    ``inject_routed`` count the injection kernel's candidates and those
+    given a slot (routed) over every replayed tick (a dragonfly's; the fat
+    tree and the torus, injected by the plain version, count none).
+    Otherwise all stay empty.
     """
 
     device: str
@@ -264,6 +272,8 @@ class RunStats:
     replay_device_ms: float = 0.0
     part_device_ms: Dict[str, float] = field(default_factory=dict)
     part_ticks: int = 0
+    inject_candidates: int = 0
+    inject_routed: int = 0
     replicas: Tuple["RunStats", ...] = ()
 
     @classmethod
@@ -295,6 +305,8 @@ class RunStats:
             replay_device_ms=sum(p.replay_device_ms for p in parts),
             part_device_ms=part_ms,
             part_ticks=sum(p.part_ticks for p in parts),
+            inject_candidates=sum(p.inject_candidates for p in parts),
+            inject_routed=sum(p.inject_routed for p in parts),
             replicas=tuple(parts))
 
 
@@ -524,60 +536,6 @@ def _leaves(tree):
     return [tree]
 
 
-# ---------------------------------------------------------------------------
-# flat-index batched scatters: fold the member index into the scatter index.
-# ``valid=False`` entries go to one extra dummy element that is sliced off
-# (the reference's ``mode="drop"``). Every scatter writes a fresh tensor:
-# states are values, as in the reference. Adds use ``index_add_``: serial
-# in index order on the CPU, atomics on CUDA (exact for the integer
-# counters; the float sums it takes on the card, lat_sum, are metrics
-# that nothing reads back).
-# ---------------------------------------------------------------------------
-
-def _global_idx(target, idx):
-    B = target.shape[0]
-    size = target[0].numel()
-    off = (torch.arange(B, device=idx.device) * size).reshape(
-        (B,) + (1,) * (idx.dim() - 1))
-    return idx.long() + off, B * size
-
-
-def _flat_scatter(target, idx, vals, valid, accumulate):
-    gidx, n = _global_idx(target, idx)
-    if isinstance(vals, torch.Tensor):
-        vals = torch.broadcast_to(vals.to(target.dtype), idx.shape)
-    else:  # a Python scalar: filled on the device (no host copy to capture)
-        vals = torch.full(idx.shape, vals, dtype=target.dtype,
-                          device=target.device)
-    vals = vals.reshape(-1)
-    flat = target.reshape(-1)
-    if valid is None:
-        flat = flat.clone()
-    else:
-        gidx = torch.where(valid, gidx, n)
-        flat = torch.cat([flat, flat.new_zeros(1)])
-    gidx = gidx.reshape(-1)
-    if accumulate:
-        flat.index_add_(0, gidx, vals)
-    else:
-        flat.index_put_((gidx,), vals)
-    return flat[:n].reshape(target.shape)
-
-
-def _flat_add(target, idx, vals, valid=None):
-    return _flat_scatter(target, idx, vals, valid, accumulate=True)
-
-
-def _flat_set(target, idx, vals, valid=None):
-    return _flat_scatter(target, idx, vals, valid, accumulate=False)
-
-
-def _flat_reduce(target, idx, vals, how):
-    gidx, _ = _global_idx(target, idx)
-    return target.reshape(-1).clone().scatter_reduce_(
-        0, gidx.reshape(-1), vals.reshape(-1), how).reshape(target.shape)
-
-
 @dataclass
 class _TickGraph:
     """A captured graph of ``ticks`` ticks over the static buffers
@@ -603,10 +561,15 @@ class _PartClock:
     (``TICK_PARTS``), recorded while a traced graph is captured: one row
     of ``len(TICK_PARTS) + 1`` events a captured tick. They are nodes of
     the graph (external event records), so after a replay they hold its
-    times; the eager step before a capture records none."""
+    times; the eager step before a capture records none. Beside them, the
+    injection's counts (candidates seen, candidates given a slot and so
+    routed) are added up on the device by every replayed tick: the
+    dragonfly's injection kernel adds them to ``counts`` with no launch of
+    its own, so the traced graph runs the plain graph's operations."""
 
-    def __init__(self):
+    def __init__(self, device):
         self.rows: List[List["torch.cuda.Event"]] = []
+        self.counts = torch.zeros((2,), dtype=torch.int64, device=device)
 
     def tick(self) -> None:
         """The start of a tick."""
@@ -621,6 +584,12 @@ class _PartClock:
                 raise ValueError(f"tick part {part!r} out of order")
             self._record()
 
+    def counter(self) -> Optional[torch.Tensor]:
+        """The injection's tally while a graph is captured, else None."""
+        if torch.cuda.is_current_stream_capturing():
+            return self.counts
+        return None
+
     def _record(self) -> None:
         ev = torch.cuda.Event(enable_timing=True, external=True)
         ev.record()
@@ -628,12 +597,17 @@ class _PartClock:
 
     def read(self, stats: RunStats) -> None:
         """Add the times of the graph's last replay, which has ended, to
-        ``stats``."""
+        ``stats``, and the injection's counts of every replay since the
+        last read."""
         for row in self.rows:
             for part, a, b in zip(TICK_PARTS, row, row[1:]):
                 stats.part_device_ms[part] = (
                     stats.part_device_ms.get(part, 0.0) + a.elapsed_time(b))
         stats.part_ticks += len(self.rows)
+        seen, routed = self.counts.tolist()
+        self.counts.zero_()
+        stats.inject_candidates += seen
+        stats.inject_routed += routed
 
 
 def member_live(state: SimState, horizon_us: float) -> torch.Tensor:
@@ -712,6 +686,11 @@ def build_engine(
     dev = resolve_device(device)
     net = net or NetConfig()
     T, route_fn = routing_tables(topo, dev)
+    # a dragonfly injects through the kernel wrapper (its UGAL router in
+    # csrc/inject.cu on the card); other fabrics route with their own
+    # route_fn in the plain injection on every device
+    dragonfly = topo.family == "dragonfly"
+    inject_tables = KINJ.inject_tables(T, dragonfly)
     L = topo.n_links
     RW = topo.route_width  # pool route-row width (fabric-declared)
     n_nodes = topo.n_nodes
@@ -772,6 +751,12 @@ def build_engine(
     cand_local = torch.as_tensor(
         np.tile(np.arange(Pmax * MAXE, dtype=np.int64), J), device=dev)
     ranks_v = torch.arange(Pmax, dtype=i32, device=dev)[None, None, :]
+    cand_rank32 = cand_rank.to(i32)
+    cand_job32 = cand_job.to(i32)
+    ur_ids = torch.arange(Pu, dtype=i32, device=dev)
+    ur_sizes = torch.full((Pu,), float(ur.size_bytes) if ur else 0.0,
+                          dtype=f32, device=dev)
+    ur_app = torch.full((Pu,), J, dtype=i32, device=dev)
     emit_slots = torch.arange(MAXE, dtype=i32, device=dev)
     win_ids = torch.arange(W, dtype=i32, device=dev)
     slot_ids = torch.arange(M, dtype=i32, device=dev)
@@ -912,74 +897,6 @@ def build_engine(
         return vm, dst, size
 
     # ------------------------------------------------------------------
-    # pool allocation: one flat batch of candidates per member
-    # ------------------------------------------------------------------
-    def inject(pool: PoolState, metrics: Metrics, t, src_ranks, dst_ranks,
-               dsts_node, srcs_node, sizes, app_id, rand, demand,
-               per_job_peak: bool):
-        """Allocate + route a flat batch of candidate messages (mask:
-        dst>=0), batched over members. All per-candidate args are (B, n);
-        ``rand`` holds uint32 values in int64. ``per_job_peak`` groups
-        candidates per job for the peak-inject metric (job-major blocks);
-        otherwise the whole call is one app."""
-        B, n = dst_ranks.shape
-        mask = dst_ranks >= 0
-        k = torch.cumsum(mask.to(i32), dim=1) - 1  # emission order
-        n_emit = mask.sum(dim=1).to(i32)  # (B,)
-        can = (k < pool.free_top[:, None]) & mask
-        slot_pos = (pool.free_top[:, None] - 1 - k).clamp(0, M - 1)
-        slot = torch.gather(pool.free_stack, 1, slot_pos.long())
-        slot = torch.where(can, slot, M)  # M = dummy row
-
-        offs = torch.arange(B, device=dev).repeat_interleave(n) * (L + 1)
-        routes, hops = route_fn(
-            T, srcs_node.reshape(-1), dsts_node.reshape(-1),
-            rand.reshape(-1) & 0x7FFFFFFF,
-            demand.reshape(-1), adaptive, demand_offsets=offs,
-        )
-        routes = routes.reshape(B, n, -1)
-        hops = hops.reshape(B, n)
-
-        active = _flat_set(pool.active, slot, True, valid=can)
-        src_rank = _flat_set(pool.src_rank, slot, src_ranks, valid=can)
-        dst_rank = _flat_set(pool.dst_rank, slot, dst_ranks, valid=can)
-        job = _flat_set(pool.job, slot, app_id, valid=can)
-        size_a = _flat_set(pool.size, slot, sizes, valid=can)
-        rem = _flat_set(pool.bytes_rem, slot, sizes, valid=can)
-        inj = _flat_set(pool.inject_t, slot, t[:, None], valid=can)
-        mina = _flat_set(
-            pool.min_arrive, slot,
-            t[:, None] + hops.to(f32) * net.hop_latency_us,
-            valid=can,
-        )
-        # route rows: scatter whole (K,) rows per slot, dummy row last
-        row_idx = slot.long() + (torch.arange(B, device=dev) * M)[:, None]
-        row_idx = torch.where(can, row_idx, B * M)
-        rts = torch.cat([
-            pool.routes.reshape(B * M, -1),
-            pool.routes.new_full((1, RW), -1),
-        ])
-        rts.index_put_((row_idx.reshape(-1),), routes.reshape(B * n, -1))
-        rts = rts[: B * M].reshape(pool.routes.shape)
-
-        n_alloc = torch.minimum(n_emit, pool.free_top)
-        pool = pool._replace(
-            active=active, src_rank=src_rank, dst_rank=dst_rank, job=job,
-            size=size_a, bytes_rem=rem, inject_t=inj, min_arrive=mina,
-            routes=rts, free_top=pool.free_top - n_alloc,
-            dropped=pool.dropped + (n_emit - n_alloc),
-        )
-        inj_bytes = torch.where(can, sizes, zero_f)
-        if per_job_peak:
-            peak = inj_bytes.reshape(B, J, -1).sum(dim=2).amax(dim=1)
-        else:
-            peak = inj_bytes.sum(dim=1)
-        metrics = metrics._replace(
-            peak_inject=torch.maximum(metrics.peak_inject, peak)
-        )
-        return pool, metrics
-
-    # ------------------------------------------------------------------
     # the tick (batched: every leaf carries the member dim B)
     # ------------------------------------------------------------------
     def _n_rounds(opc, a0, P, logp):
@@ -1080,22 +997,26 @@ def build_engine(
         if mark is not None:
             mark("demand")
 
-        pool, metrics = inject(
-            pool, metrics, t,
-            cand_rank.to(i32).expand(B, N), dst_f,
-            dsts_node, srcs_node, sizes_f,
-            cand_job.to(i32).expand(B, N), rand, demand, per_job_peak=True,
-        )
+        batches = [KINJ.Candidates(
+            cand_rank32.expand(B, N), dst_f, dsts_node, srcs_node, sizes_f,
+            cand_job32.expand(B, N), rand, per_job_peak=True)]
         if ur_state is not None:
-            pool, metrics = inject(
-                pool, metrics, t,
-                torch.arange(Pu, dtype=i32, device=dev).expand(B, Pu),
+            batches.append(KINJ.Candidates(
+                ur_ids.expand(B, Pu),
                 torch.where(fire, 0, -1).to(i32),  # dst_rank 0 marker
-                dstn, state.ur_nodes,
-                torch.full((B, Pu), float(ur.size_bytes), dtype=f32, device=dev),
-                torch.full((B, Pu), J, dtype=i32, device=dev), ur_rand, demand,
-                per_job_peak=False,
-            )
+                dstn, state.ur_nodes, ur_sizes.expand(B, Pu),
+                ur_app.expand(B, Pu), ur_rand, per_job_peak=False))
+        if dragonfly:
+            pool, metrics = KOPS.inject(
+                pool, metrics, t, batches, demand, inject_tables,
+                adaptive=adaptive, hop_latency_us=net.hop_latency_us,
+                n_jobs=J,
+                counts=None if mark is None else mark.counter())
+        else:
+            pool, metrics = KINJ.inject_batches_plain(
+                pool, metrics, t, batches, demand, inject_tables, adaptive,
+                net.hop_latency_us, J, route_fn=route_fn)
+        if ur_state is not None:
             rng2 = (rng_jobs + Pu * fire.any(dim=1).to(i64)) & MASK32
             ur_state = URState(
                 next_t=torch.where(
@@ -1133,18 +1054,18 @@ def build_engine(
         ).to(i32)
         app_of = pool.job
         d32 = delivered.to(i32)
-        lat_hist = _flat_add(
+        lat_hist = flat_add(
             metrics.lat_hist,
             torch.where(delivered, app_of, 0) * BINS
             + torch.where(delivered, bins, 0),
             d32,
         )
-        lat_sum = _flat_add(
+        lat_sum = flat_add(
             metrics.lat_sum, app_of, torch.where(delivered, lat, zero_f))
-        lat_cnt = _flat_add(metrics.lat_cnt, app_of, d32)
-        lat_min = _flat_reduce(
+        lat_cnt = flat_add(metrics.lat_cnt, app_of, d32)
+        lat_min = flat_reduce(
             metrics.lat_min, app_of, torch.where(delivered, lat, inf_f), "amin")
-        lat_max = _flat_reduce(
+        lat_max = flat_reduce(
             metrics.lat_max, app_of, torch.where(delivered, lat, -inf_f), "amax")
 
         # (app, link-level) histograms, compiled in only when configured
@@ -1160,11 +1081,11 @@ def build_engine(
 
         # --- 4. delivery notifications -> VMs (UR id J is dropped) ---
         notify = delivered & (pool.job < J)
-        sd = _flat_add(
+        sd = flat_add(
             vms.send_done, pool.job * Pmax + pool.src_rank,
             notify.to(i32), valid=notify,
         )
-        rd = _flat_add(
+        rd = flat_add(
             vms.recv_done, pool.job * Pmax + pool.dst_rank,
             notify.to(i32), valid=notify,
         )
@@ -1174,7 +1095,7 @@ def build_engine(
         freed = delivered
         kf = torch.cumsum(freed.to(i32), dim=1) - 1
         pos = pool.free_top[:, None] + kf
-        free_stack = _flat_set(
+        free_stack = flat_set(
             pool.free_stack, pos, slot_ids.expand(B, M), valid=freed)
         pool = pool._replace(
             active=pool.active & ~delivered,
@@ -1463,7 +1384,7 @@ def build_engine(
             tg = graphs.get(key)
             sp.set(captured=tg is None)
             if tg is None:
-                tg = make(state, n, _PartClock() if traced else None)
+                tg = make(state, n, _PartClock(dev) if traced else None)
                 graphs[key] = tg
                 stats.captured = True
             stats.graph_ticks = n

@@ -645,6 +645,7 @@ def _add_run(tot: Dict[str, Any], st) -> None:
     :class:`~repro_torch.netsim.engine.RunStats`: on the card a call's
     kernel launches are its replays times its graph's captured launches.
     A traced call's part times add ``part_device_ms`` and ``part_ticks``,
+    and its injection counts ``inject_candidates`` and ``inject_routed``,
     which are absent otherwise."""
     tot["calls"] += 1
     tot["ticks"] += st.ticks
@@ -660,6 +661,8 @@ def _add_run(tot: Dict[str, Any], st) -> None:
         for k, v in st.part_device_ms.items():
             parts[k] = parts.get(k, 0.0) + v
         tot["part_ticks"] = tot.get("part_ticks", 0) + st.part_ticks
+        for k in ("inject_candidates", "inject_routed"):
+            tot[k] = tot.get(k, 0) + getattr(st, k)
 
 
 def _add_windows(tot: Dict[str, Any], ew: Dict[str, Any]) -> None:

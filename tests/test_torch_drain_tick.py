@@ -166,17 +166,19 @@ def test_ops_dispatch_takes_plain_version_on_cpu():
 
 
 def test_each_source_names_its_own_flags():
-    """Only the drain tick asks for ``--fmad=false`` (its exact delivery
-    ticks need it); the flags are part of the library's hash."""
+    """Only the drain tick and the injection ask for ``--fmad=false``
+    (exact delivery ticks, UGAL's compare and the latency floor need it);
+    the flags are part of the library's hash."""
     from repro_torch.kernels import _build
 
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["drain_tick", "link_demand", "router_tick", "ssd_scan",
-                       "ssd_scan_bwd"]
+    assert sources == ["drain_tick", "inject", "link_demand", "router_tick",
+                       "ssd_scan", "ssd_scan_bwd"]
     for name in sources:
         flags = _build.source_flags(name)
         assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
-        assert ("--fmad=false" in flags) == (name == "drain_tick"), name
+        assert ("--fmad=false" in flags) == (
+            name in ("drain_tick", "inject")), name
         assert _build.library_path(name).name.startswith(f"{name}-")
 
 

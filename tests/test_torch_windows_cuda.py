@@ -239,6 +239,7 @@ def test_traced_graph_times_the_parts_and_keeps_the_bits(card, kind):
     plain, ps = call()
     keys, launches = set(eng.graphs), ps.graph_launches
     assert ps.part_device_ms == {} and ps.part_ticks == 0
+    assert ps.inject_candidates == ps.inject_routed == 0
     obs.enable()
     try:
         traced, ts = call()
@@ -253,8 +254,15 @@ def test_traced_graph_times_the_parts_and_keeps_the_bits(card, kind):
     assert ts.part_ticks % ENG.GRAPH_TICKS == 0 and ts.part_ticks > 0
     per_tick = sum(ts.part_device_ms.values()) / ts.part_ticks
     assert per_tick == pytest.approx(ts.replay_device_ms / ts.ticks, rel=0.1)
+    # the injection's counts cover every replayed tick: each member's
+    # (job, rank, emission) candidates and UR sources, and those routed
+    B, J, Pmax = st.vms.pc.shape
+    per_member = J * Pmax * ENG.MAXE + st.ur_nodes.shape[1]
+    assert ts.inject_candidates == ts.ticks * B * per_member
+    assert 0 < ts.inject_routed < ts.inject_candidates
     again, ag = call()
     assert not ag.captured and ag.part_ticks == 0
+    assert ag.inject_candidates == ag.inject_routed == 0
     assert ag.graph_launches == launches
     assert_same_window(again, plain)
 
