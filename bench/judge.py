@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: each sampled member's report
 from the program against the reference's report of the same scenario
-and member seed.
+and member seed (a trace cell's records against the reference's run of
+the same cell: ``kinds/trace.py``, which names its own float sums).
 
 Two numbers, each with its limit in ``limits/<config>.json``:
 
@@ -56,9 +57,11 @@ def _rel_gap(a, b) -> float:
     return abs(a - b) / max(abs(b), 1e-300)
 
 
-def judge(program: Sequence[Dict], reference: Sequence[Dict]) -> Dict:
+def judge(program: Sequence[Dict], reference: Sequence[Dict],
+          sums=SUM_LEAVES) -> Dict:
     """The two numbers over every sampled member (``program[i]`` against
-    ``reference[i]``; a missing program report is None)."""
+    ``reference[i]``; a missing program report is None). ``sums`` matches
+    the float-sum leaves (a configuration kind's own: ``kinds/``)."""
     off, gap, n = 0, 0.0, 0
     for got, want in zip(program, reference):
         w = {k: v for k, v in leaves(want) if not HOST_LEAVES.match(k)}
@@ -68,7 +71,7 @@ def judge(program: Sequence[Dict], reference: Sequence[Dict]) -> Dict:
             n += 1
             if k not in w or k not in g:
                 off += 1
-            elif SUM_LEAVES.match(k):
+            elif sums.match(k):
                 gap = max(gap, _rel_gap(g[k], w[k]))
             elif not _same(g[k], w[k]):
                 off += 1

@@ -14,7 +14,17 @@ facade's member reports as they happen:
   (reports, the next call's plan, engine look-up and initial states) to
   the end of the second repeat's first ``boundary_replays`` replays. It
   gives the device's busy and idle time and the idle gaps, each named by
-  the host span that covers it.
+  the host span that covers it. A trace cell's boundary (``rounds``)
+  spans whole scheduler rounds instead, each a host round (the view,
+  the queue policy, slot surgery) and its window's replays: from the
+  start of round ``rounds[0]`` of the second repeat to the start of the
+  round ``rounds[1]`` rounds later.
+
+Where the members are split over cards (one host thread a card), the
+profiler is started and stopped only while every other card's thread is
+held before or after a replay: started or stopped beside graph launches
+in other threads, ``torch.profiler`` hung in ``stop`` (its CUPTI flush)
+in 2 of 3 processes that took the profiles 6 times each on four H100s.
 """
 from __future__ import annotations
 
@@ -24,6 +34,9 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 TRIES = 3
+# seconds a watcher that starts or stops a profile waits for the other
+# cards' threads to reach a replay; one that has ended its run never does
+QUIET_S = 10.0
 WRAPPER_KERNELS = {
     "drain_tick": ("drain_zero_kernel", "drain_count_kernel", "drain_kernel"),
     "link_demand": ("link_zero_kernel", "link_count_kernel",
@@ -94,13 +107,19 @@ class Tap:
     a card where the members are split); a watcher that reaches the start
     or the end of a profile waits there while the harness's own thread
     (``serve``) starts or stops the profiler, which has to be started
-    and stopped by one thread."""
+    and stopped by one thread. A replay's watcher first holds every other
+    card's thread at its next replay (``_quiet``), so that no graph is
+    launched while the profiler starts or stops."""
 
     def __init__(self, replays: int = 2, skip: int = 40,
-                 boundary_replays: int = 2, graph_ticks: int = 8):
+                 boundary_replays: int = 2, graph_ticks: int = 8,
+                 rounds: Optional[Tuple[int, int]] = None):
         self.k, self.skip, self.k2 = replays, skip, boundary_replays
+        self.rounds, self.round = rounds, 0
         self.graph_ticks = graph_ticks
         self.lock = threading.Lock()
+        self.cond = threading.Condition(self.lock)
+        self.hold, self.parked, self.unquiet = False, 0, 0
         self.requests: "queue.Queue" = queue.Queue()
         self.repeat = -1
         self.count: Dict[int, int] = {}
@@ -113,13 +132,16 @@ class Tap:
         self.prof = None
 
     # -- install / remove ----------------------------------------------
-    def install(self, manager_module):
+    def install(self, module, name: str = "member_report"):
+        """Watch the graph replays and calls of ``module.<name>``, the
+        boundary: the facade's member reports, or a trace cell's host
+        view (one call a scheduler round)."""
         import torch
 
         self._graph_cls = torch.cuda.CUDAGraph
         self._orig_replay = self._graph_cls.replay
-        self._mgr = manager_module
-        self._orig_report = manager_module.member_report
+        self._mod, self._name = module, name
+        self._orig_boundary = getattr(module, name)
         tap = self
 
         def replay(graph):
@@ -127,16 +149,16 @@ class Tap:
             tap._orig_replay(graph)
             tap._after_replay()
 
-        def member_report(*a, **kw):
-            tap._on_report()
-            return tap._orig_report(*a, **kw)
+        def boundary(*a, **kw):
+            tap._on_boundary()
+            return tap._orig_boundary(*a, **kw)
 
         self._graph_cls.replay = replay
-        manager_module.member_report = member_report
+        setattr(module, name, boundary)
 
     def remove(self):
         self._graph_cls.replay = self._orig_replay
-        self._mgr.member_report = self._orig_report
+        setattr(self._mod, self._name, self._orig_boundary)
         if self.prof is not None:
             self._stop()
 
@@ -195,11 +217,41 @@ class Tap:
                     offset_ns=off)
 
     # -- watchers (the program's threads) ---------------------------------
-    def _before_replay(self):
+    def _gate(self):
+        """Wait here while another watcher holds the cards (lock held)."""
+        if self.hold:
+            self.parked += 1
+            self.cond.notify_all()
+            self.cond.wait_for(lambda: not self.hold)
+            self.parked -= 1
+
+    def _quiet(self, what: str) -> None:
+        """Hold the other cards' threads at their next replay, ask the
+        harness's thread for ``what``, then let them go (lock not held).
+        Where a thread does not come within ``QUIET_S`` seconds, its run
+        has ended, and the profiler starts or stops all the same."""
+        with self.lock:
+            self.hold = True
+            others = len(self.count) - 1
+            if not self.cond.wait_for(lambda: self.parked >= others,
+                                      timeout=QUIET_S):
+                self.unquiet += 1
+        try:
+            self._ask(what)
+        finally:
+            with self.lock:
+                self.hold = False
+                self.cond.notify_all()
+
+    def _device(self) -> int:
         import torch
 
-        dev = torch.cuda.current_device()
+        return torch.cuda.current_device()
+
+    def _before_replay(self):
+        dev = self._device()
         with self.lock:
+            self._gate()
             n = self.count.get(dev, 0)
             self.count[dev] = n + 1
             start = (self.p1_state == "armed" and self.prof is None
@@ -208,28 +260,32 @@ class Tap:
             if start:
                 self.p1_state, self.p1_dev, self.p1_n = "starting", dev, 0
         if start:
-            self._ask("start")
+            self._quiet("start")
 
     def _after_replay(self):
-        import torch
-
-        dev = torch.cuda.current_device()
+        dev = self._device()
         ask = None
         with self.lock:
+            self._gate()
             if self.p1_state == "on" and dev == self.p1_dev:
                 self.p1_n += 1
                 if self.p1_n == self.k:
                     ask = "stop_replays"
                     self.p1_state = "stopping"
-            elif (self.p2_state == "on" and self.repeat == 1 and dev == 0):
+            elif (self.p2_state == "on" and self.repeat == 1 and dev == 0
+                  and self.rounds is None):
                 self.p2_n += 1
                 if self.p2_n == self.k2:
                     ask = "stop_boundary"
                     self.p2_state = "stopping"
         if ask:
-            self._ask(ask)
+            self._quiet(ask)
 
-    def _on_report(self):
+    def _on_boundary(self):
+        """A member report: the boundary profile starts at the first one
+        of the first repeat (a trace cell's rounds: ``_on_round``)."""
+        if self.rounds is not None:
+            return self._on_round()
         with self.lock:
             start = (self.p2_state == "armed" and self.repeat == 0
                      and self.prof is None
@@ -238,6 +294,24 @@ class Tap:
                 self.p2_state = "starting"
         if start:
             self._ask("start")
+
+    def _on_round(self):
+        """A trace cell's round begins: the boundary profile starts at
+        round ``rounds[0]`` of the second repeat and stops ``rounds[1]``
+        rounds later."""
+        first, n = self.rounds
+        ask = None
+        with self.lock:
+            if self.repeat != 1:
+                return
+            r, self.round = self.round, self.round + 1
+            if (r == first and self.p2_state == "armed"
+                    and self.prof is None):
+                self.p2_state, ask = "starting", "start"
+            elif r == first + n and self.p2_state == "on":
+                self.p2_state, ask = "stopping", "stop_boundary"
+        if ask:
+            self._ask(ask)
 
     def _finish_p1(self):
         got = self._stop()

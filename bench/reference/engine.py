@@ -22,6 +22,12 @@ Every other float sum is a metric that nothing reads back, and integer
 counts are exact in any order.
 
 ``fdt`` is the float type of the state; float32 is the simulator's.
+
+The online scheduler's engine calls are windows (:class:`Windows`): a
+member ticks until it stops (no longer live, its clock at the window's
+``t_stop``, or one more job slot done than at the window's start), the
+cap entering the idle-time skip as a wake-up; between windows job slots
+are admitted and vacated in place.
 """
 from __future__ import annotations
 
@@ -219,12 +225,15 @@ def drain(routes, bytes_rem, active, job, min_arrive, t, dt, bw_eff,
 
 class Simulator:
     """The engine for one scenario's job set (``Jmax`` jobs of at most
-    ``Pmax`` ranks and ``OPmax`` ops) on ``topo``, batched over members."""
+    ``Pmax`` ranks and ``OPmax`` ops) on ``topo``, batched over members;
+    ``slots`` job slots in place of one a program where the programs are
+    a trace's, admitted into the slots in turn (:class:`Windows`)."""
 
     def __init__(self, topo: Dragonfly, programs: Sequence[Program], *,
                  routing: str, net: NetConfig, pool_size: int,
                  horizon_us: float, start_us: Sequence[float],
-                 ur: Optional[dict], device, fdt=torch.float32):
+                 ur: Optional[dict], device, fdt=torch.float32,
+                 slots: Optional[int] = None):
         self.topo, self.programs, self.net = topo, list(programs), net
         self.dev = torch.device(device)
         self.fdt = fdt
@@ -232,7 +241,7 @@ class Simulator:
         self.horizon_us = horizon_us
         self.start_us = [float(x) for x in start_us]
         self.ur = ur  # {"ranks", "size_bytes", "interval_us", "start_us"}
-        self.J = len(self.programs)
+        self.J = slots or len(self.programs)
         self.Pmax = max(p.n_ranks for p in self.programs)
         self.OPmax = max(p.n_ops for p in self.programs)
         self.n_apps = self.J + (1 if ur else 0)
@@ -283,6 +292,52 @@ class Simulator:
         start = np.asarray(self.start_us, np.float32)
         done0 = ((np.arange(Pmax)[None, :] >= P[:, None])
                  | (ops[:, 0, 0] == OP["END"])[:, None])
+        return self._state(ops, grid, P, logp, r2n, start, done0,
+                           placements, seeds)
+
+    def vacant_state(self, seed: int) -> SimState:
+        """One member (B = 1) whose job slots are all vacant, engine rng
+        seed ``seed``: the online scheduler's start."""
+        t = self.slot_rows([None] * self.J)
+        return self._state(t["ops"], t["grid"], t["P"], t["logp"],
+                           t["r2n"][None], t["start"], t["done"], [None],
+                           [seed])
+
+    def slot_rows(self, entries) -> dict:
+        """Job-table rows and VM ``done`` rows (numpy) of job slots that
+        take ``entries``, each ``(program, nodes, start_us)`` or None for
+        a vacant slot: END only, one rank, its start at infinity, every
+        rank done (inert to the other slots' trajectories)."""
+        K, Pmax, OPmax = len(entries), self.Pmax, self.OPmax
+        ops = np.zeros((K, OPmax, 4), np.int32)
+        ops[:, :, 0] = OP["END"]
+        grid = np.zeros((K, OPmax, 4), np.int32)
+        P = np.ones((K,), np.int32)
+        r2n = np.zeros((K, Pmax), np.int32)
+        start = np.full((K,), np.inf, np.float32)
+        done = np.ones((K, Pmax), bool)
+        for k, e in enumerate(entries):
+            if e is None:
+                continue
+            pr, nodes, s = e
+            ops[k, :pr.n_ops] = pr.ops
+            grid[k, :pr.n_ops] = pr.grid
+            P[k] = pr.n_ranks
+            r2n[k, :pr.n_ranks] = np.asarray(nodes, np.int32)
+            start[k] = np.float32(s)
+            done[k] = np.arange(Pmax) >= pr.n_ranks
+        logp = np.asarray([max(1, math.ceil(math.log2(max(int(p), 2))))
+                           for p in P], np.int32)
+        return dict(ops=ops, grid=grid, P=P, logp=logp, r2n=r2n,
+                    start=start, done=done)
+
+    def _state(self, ops, grid, P, logp, r2n, start, done0, placements,
+               seeds) -> SimState:
+        """The batch's initial state from its job tables (``r2n`` per
+        member, the others shared) and each member's UR placement and
+        rng seed."""
+        B, J, Pmax = len(seeds), self.J, self.Pmax
+        dev, fdt, M, L = self.dev, self.fdt, self.M, self.L
 
         def rep(x):
             return torch.as_tensor(
@@ -510,10 +565,13 @@ class Simulator:
                             torch.div(P - 2, MAXE, rounding_mode="floor")
                             + 1, 1)))
 
-    def tick(self, state: SimState, demand=None) -> SimState:
+    def tick(self, state: SimState, demand=None, t_cap=None,
+             stop_m=None) -> SimState:
         """One tick of every member; ``demand`` is the per-link demand of
         ``state``'s pool (``link_demand``), worked out here when not
-        given."""
+        given. In a window, ``t_cap`` (B,) is each member's ``t_stop``, a
+        wake-up of the idle-time skip, and ``stop_m`` (B,) freezes the
+        members that have stopped."""
         dev, fdt, net = self.dev, self.fdt, self.net
         i32, i64 = torch.int32, torch.int64
         J, Pmax, N, M, L = self.J, self.Pmax, self.N, self.M, self.L
@@ -523,6 +581,8 @@ class Simulator:
         B = t.shape[0]
         pool, metrics, rng = state.pool, state.metrics, state.rng
         live_m = self.live(state)
+        if stop_m is not None:
+            live_m = live_m & ~stop_m
         zero_f = torch.zeros((), dtype=fdt, device=dev)
         inf_f = torch.full((), math.inf, dtype=fdt, device=dev)
 
@@ -677,11 +737,18 @@ class Simulator:
         pend = ~started & live_r.any(dim=2)
         min_busy = torch.minimum(
             min_busy, torch.where(pend, jt.start, inf_f).amin(dim=1))
+        if t_cap is not None:
+            min_busy = torch.minimum(min_busy, t_cap)
         if ur_state is not None:
             min_busy = torch.minimum(min_busy, ur_state.next_t.amin(dim=1))
         next_window = (win_idx.to(fdt) + 1.0) * net.window_us
         skip_to = torch.minimum(min_busy, next_window)
         idle = ~any_active & ~can_act & torch.isfinite(skip_to)
+        if t_cap is not None:
+            # a member whose last job just finished holds its clock: the
+            # scheduler starts queued jobs at that time
+            all_done = vms.done.flatten(1).all(1) & ~any_active
+            idle = idle & ~(all_done & torch.isfinite(t_cap))
         t_new = torch.where(idle, torch.maximum(t + dt, skip_to), t + dt)
         return SimState(
             t=torch.where(live_m, t_new, t), vms=vms, ur=ur_state, pool=pool,
@@ -706,59 +773,173 @@ class Simulator:
         return state, n
 
     def _run_graphed(self, state: SimState, max_ticks: int):
-        """The ticks as replays of one CUDA graph over static buffers: the
-        tick from the buffers' state and the demand buffer, the state
-        copied back, then the next tick's demand entries (valid route
-        entries in flat order, packed by a prefix sum), their count and
-        whether a member is live. The host reads those, sums the demand
-        serially and writes it into the demand buffer."""
-        B, M = state.t.shape[0], self.M
-        K, Lp = self.topo.route_width, self.L + 1
-        dev = self.dev
+        """The ticks as replays of one captured graph (``GraphedTicks``)
+        while a member is live."""
+        g = GraphedTicks(self, state, self.tick,
+                         lambda s: self.live(s).any())
+        n = g.run(max_ticks)
+        return _rebuild(g.state, [x.clone() for x in _leaves(g.state)]), n
+
+
+class GraphedTicks:
+    """Ticks as replays of one CUDA graph over static buffers (``state``):
+    the tick (``tick(state, demand)``) from the buffers' state and the
+    demand buffer, the state copied back, then the next tick's demand
+    entries (valid route entries in flat order, packed by a prefix sum),
+    their count and whether to go on (``go(state)``). The host reads
+    those, sums the demand serially and writes it into the demand
+    buffer."""
+
+    def __init__(self, sim: Simulator, state: SimState, tick, go):
+        B, M = state.t.shape[0], sim.M
+        K, Lp = sim.topo.route_width, sim.L + 1
+        dev = sim.dev
+        self.sim, self.go = sim, go
         leaves = _leaves(state)
-        static = _rebuild(state, [x.clone() for x in leaves])
-        demand = torch.zeros((B, Lp), dtype=self.fdt, device=dev)
-        keys = torch.zeros(B * M * K + 1, dtype=torch.int64, device=dev)
-        vals = torch.zeros(B * M * K + 1, dtype=self.fdt, device=dev)
-        flags = torch.zeros(2, dtype=torch.int64, device=dev)
-        boff = (torch.arange(B, device=dev) * Lp)[:, None, None]
+        st = self.state = _rebuild(state, [x.clone() for x in leaves])
+        self.demand = torch.zeros((B, Lp), dtype=sim.fdt, device=dev)
+        self.keys = torch.zeros(B * M * K + 1, dtype=torch.int64, device=dev)
+        self.vals = torch.zeros(B * M * K + 1, dtype=sim.fdt, device=dev)
+        self.flags = torch.zeros(2, dtype=torch.int64, device=dev)
+        # the graph reads every buffer it was captured with: each is kept
+        # as long as the graph
+        self.boff = boff = (torch.arange(B, device=dev) * Lp)[:, None, None]
 
         def step():
-            out = self.tick(static, demand)
-            for dst, src in zip(_leaves(static), _leaves(out)):
+            out = tick(st, self.demand)
+            for dst, src in zip(_leaves(st), _leaves(out)):
                 dst.copy_(src)
-            p = static.pool
+            p = st.pool
             valid = ((p.routes >= 0) & p.active[:, :, None]).reshape(-1)
             at = torch.where(valid, torch.cumsum(valid, 0) - 1, B * M * K)
-            keys.index_put_((at,), (p.routes.long() + boff).reshape(-1))
-            vals.index_put_((at,), p.bytes_rem[:, :, None].expand(
+            self.keys.index_put_((at,), (p.routes.long() + boff).reshape(-1))
+            self.vals.index_put_((at,), p.bytes_rem[:, :, None].expand(
                 B, M, K).reshape(-1))
-            flags[0] = valid.sum()
-            flags[1] = self.live(static).any()
+            self.flags[0] = valid.sum()
+            self.flags[1] = go(st)
 
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.tick(static, demand)  # builds what the tick calls
+            tick(st, self.demand)  # builds what the tick calls
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
             step()
-        for dst, src in zip(_leaves(static), leaves):
+        for dst, src in zip(_leaves(st), leaves):
             dst.copy_(src)
-        demand.copy_(link_demand(state.pool.routes, state.pool.active,
-                                 state.pool.bytes_rem, self.L))
+
+    def run(self, max_ticks: int) -> int:
+        """Replay while ``go`` holds, at most ``max_ticks`` times; returns
+        the ticks replayed."""
+        p = self.state.pool
+        self.demand.copy_(link_demand(p.routes, p.active, p.bytes_rem,
+                                      self.sim.L))
         n = 0
-        live = bool(self.live(state).any())
-        while n < max_ticks and live:
-            graph.replay()
+        go = bool(self.go(self.state))
+        while n < max_ticks and go:
+            self.graph.replay()
             n += 1
-            count, live = flags.tolist()
-            out = np.zeros(B * Lp, np.float32)
-            np.add.at(out, keys[:count].cpu().numpy(),
-                      vals[:count].float().cpu().numpy())
-            demand.copy_(torch.as_tensor(out.reshape(B, Lp)))
-        return _rebuild(static, [x.clone() for x in _leaves(static)]), n
+            count, go = self.flags.tolist()
+            out = np.zeros(self.demand.numel(), np.float32)
+            np.add.at(out, self.keys[:count].cpu().numpy(),
+                      self.vals[:count].float().cpu().numpy())
+            self.demand.copy_(torch.as_tensor(out.reshape(
+                self.demand.shape)))
+        return n
+
+
+class Windows:
+    """One member's run in scheduling windows, the online scheduler's
+    engine calls. ``run(t_stop)`` ticks until the member stops: it is no
+    longer live, its clock reaches ``t_stop``, or more of its job slots
+    are done than when the window began. Between windows ``view()`` reads
+    what the scheduler reads and ``write(slot, entry)`` admits a job into
+    a slot or vacates it (``Simulator.slot_rows``), in place. On the card
+    each tick is one replay of a captured graph of the tick, the link
+    demand summed on the host between replays (``GraphedTicks``).
+    ``max_ticks`` caps the ticks of all windows together (a clock too
+    coarse to reach ``t_stop`` stops there; ``exhausted`` says so)."""
+
+    def __init__(self, sim: Simulator, state: SimState, max_ticks: int):
+        self.sim, self.max_ticks, self.ticks = sim, max_ticks, 0
+        B = state.t.shape[0]
+        self.t_stop = torch.full((B,), math.inf, dtype=sim.fdt,
+                                 device=sim.dev)
+        self.n0 = self.done_slots(state)
+        self.graph = None
+        if sim.dev.type == "cuda":
+            self.graph = GraphedTicks(
+                sim, state, lambda s, d: sim.tick(
+                    s, d, t_cap=self.t_stop, stop_m=self.stopped(s)),
+                lambda s: (~self.stopped(s)).any())
+            self.state = self.graph.state
+        else:
+            self.state = _rebuild(state, [x.clone() for x in _leaves(state)])
+
+    @staticmethod
+    def done_slots(s: SimState) -> torch.Tensor:
+        return s.vms.done.all(-1).sum(-1)
+
+    def stopped(self, s: SimState) -> torch.Tensor:
+        return ~(self.sim.live(s) & (s.t < self.t_stop)
+                 & (self.done_slots(s) <= self.n0))
+
+    @property
+    def exhausted(self) -> bool:
+        return self.ticks >= self.max_ticks
+
+    def run(self, t_stop: float) -> int:
+        """One window to ``t_stop``; returns the ticks it took."""
+        self.t_stop.fill_(float(t_stop))
+        self.n0.copy_(self.done_slots(self.state))
+        if self.graph is not None:
+            n = self.graph.run(self.max_ticks - self.ticks)
+            self.ticks += n
+            return n
+        n = 0
+        while not self.exhausted:
+            stop = self.stopped(self.state)
+            if bool(stop.all()):
+                break
+            self.state = self.sim.tick(self.state, t_cap=self.t_stop,
+                                       stop_m=stop)
+            self.ticks += 1
+            n += 1
+        return n
+
+    def view(self) -> dict:
+        """Member 0's clock, each slot's done and in-flight flags, the
+        per-slot latency sums and counts and each rank's communication
+        time, on the host (floats as float32 or wider)."""
+        s = self.state
+
+        def host(x):
+            x = x[0].detach()
+            return (x.float() if x.is_floating_point() else x).cpu().numpy()
+
+        active, job = host(s.pool.active), host(s.pool.job)
+        J = self.sim.J
+        in_flight = np.zeros((J,), bool)
+        in_flight[job[active & (job < J)]] = True
+        return dict(t=float(host(s.t)), slot_done=host(s.vms.done).all(-1),
+                    in_flight=in_flight, lat_sum=host(s.metrics.lat_sum),
+                    lat_cnt=host(s.metrics.lat_cnt),
+                    comm_time=host(s.vms.comm_time))
+
+    def write(self, slot: int, entry) -> None:
+        """Admit ``entry`` (``(program, nodes, start_us)``) into ``slot``,
+        or vacate it (None): its job-table rows and fresh VM rows."""
+        rows = self.sim.slot_rows([entry])
+        jt, vms = self.state.jobs, self.state.vms
+        for name, leaf in zip(JobTable._fields, jt):
+            leaf[0, slot] = torch.as_tensor(rows[name][0], device=leaf.device)
+        for name, leaf in zip(VMState._fields, vms):
+            if name == "done":
+                leaf[0, slot] = torch.as_tensor(rows["done"][0],
+                                                device=leaf.device)
+            else:
+                leaf[0, slot] = 0
 
 
 def _leaves(tree):

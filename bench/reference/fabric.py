@@ -160,12 +160,15 @@ def dragonfly(topo: str, scale: str) -> Dragonfly:
 
 
 def place_jobs(t: Dragonfly, sizes: Sequence[int], policy: str,
-               seed: int) -> List[np.ndarray]:
+               seed: int, occupied=None) -> List[np.ndarray]:
     """Paper §IV-C: random nodes (RN), routers (RR) or groups (RG); each
-    job takes the next ``size`` nodes of the drawn order."""
+    job takes the next ``size`` nodes of the drawn order. ``occupied``
+    (an ``(n_nodes,)`` bool mask, the online scheduler's) takes the nodes
+    it holds out of the order, which keeps its draw."""
     rng = np.random.default_rng(seed)
-    if sum(sizes) > t.n_nodes:
-        raise ValueError(f"jobs need {sum(sizes)} nodes of {t.n_nodes}")
+    free = t.n_nodes - (0 if occupied is None else int(occupied.sum()))
+    if sum(sizes) > free:
+        raise ValueError(f"jobs need {sum(sizes)} nodes of {free} free")
     p = t.nodes_per_router
     if policy == "RN":
         order = rng.permutation(t.n_nodes)
@@ -178,6 +181,8 @@ def place_jobs(t: Dragonfly, sizes: Sequence[int], policy: str,
                  + np.arange(npg)[None, :]).reshape(-1)
     else:
         raise ValueError(f"unknown placement policy {policy!r}")
+    if occupied is not None:
+        order = order[~np.asarray(occupied, bool)[order]]
     offs = np.cumsum([0] + list(sizes))
     return [np.asarray(order[offs[i]:offs[i + 1]], np.int64)
             for i in range(len(sizes))]

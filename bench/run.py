@@ -6,17 +6,19 @@ from the root of a checkout, on a machine with as many CUDA cards as the
 cell asks for (``BENCHMARK.json``). A run:
 
 1. set-up: imports the port (``src/repro_torch``), builds or loads the
-   simulator's two kernels (``build/repro_torch/`` in the checkout),
-   reads the cell's configuration (``configs/<config>.json``, a scenario
-   file) and traffic (``traffic/<cell>.json``), and warms up with one
-   ``union.run`` call of the cell's member count whose jobs arrive after
-   the horizon: it captures the same graphs and fills the engine cache;
-2. the window: ``union.run`` calls (repeats), each over the next block of
-   member seeds drawn from ``--seed``, until ``--seconds`` have passed;
-   every number covers all the repeats and all the time they took;
-3. the check: a sample of the window's members, drawn from the seed, is
-   simulated again by the plain reference (``reference/``) and each
-   report compared (``judge.py``, limits in ``limits/<config>.json``);
+   simulator's kernels (``build/repro_torch/`` in the checkout), reads
+   the cell's configuration (``configs/<config>.json``) and traffic
+   (``traffic/<traffic>.json``), and warms up with one ``union.run``
+   call of the cell's shape whose jobs arrive after the horizon: it
+   captures the same graphs and fills the engine cache. The
+   configuration's ``"kind"`` (a scenario file where it has none) names
+   the module that knows its calls, ``kinds/<kind>.py``;
+2. the window: ``union.run`` calls (repeats) of the cell's fixed study
+   until ``--seconds`` have passed; every number covers all the repeats
+   and all the time they took;
+3. the check: a sample of the window's members or cells, drawn from the
+   seed, is simulated again by the plain reference (``reference/``) and
+   compared (``judge.py``, limits in ``limits/<config>.json``);
 4. one JSON line: ``correct``, ``attempted``, ``failed``, ``metrics``
    (the end-to-end metrics, or with ``--trace 1`` the per-layer ones,
    each read by ``metrics/<name>.py``), ``device`` and, traced,
@@ -93,47 +95,29 @@ def cell_spec(name: str, bench_json: Path = ROOT / "BENCHMARK.json"):
     return cell, config, mine(spec["end_to_end"]), mine(spec["per_layer"])
 
 
-def sim_shapes(sc: dict, batch: int):
-    """The shapes of one engine call of the scenario (``bounds.SimShapes``),
-    worked out by the reference from the scenario file."""
-    import bounds
-    from reference.study import Study
-
-    st = Study(sc)
-    t = st.topo
-    return bounds.SimShapes(
-        B=batch, J=len(st.programs),
-        Pmax=max(p.n_ranks for p in st.programs),
-        OPmax=max(p.n_ops for p in st.programs), M=st.pool_size,
-        K=t.route_width, L=t.n_links, R=t.n_routers, G=t.n_groups,
-        a=t.routers_per_group, lpp=t.links_per_pair,
-        n_apps=len(st.programs) + (1 if st.ur else 0),
-        Pu=int(st.ur["ranks"]) if st.ur else 0)
+def kind_of(config: dict):
+    """The module of a configuration's kind (``kinds/<kind>.py``; a file
+    without ``"kind"`` is a scenario), found by name as metrics are."""
+    kind = config.get("kind", "scenario")
+    path = BENCH / "kinds" / f"{kind}.py"
+    if not path.exists():
+        raise NoRun(f"no configuration kind {kind!r} ({path})")
+    return _load(path)
 
 
-def _replica_stats(engine_module):
-    """The per-replica stats of the last split call (``Engine.prun``), if
-    the last call split its members."""
-    for eng in engine_module._ENGINE_CACHE.values():
-        st = eng.last_run
-        if st is not None and st.replicas:
-            return [dict(ticks=r.ticks, replays=r.replays,
-                         replay_device_ms=r.replay_device_ms)
-                    for r in st.replicas]
-    return []
-
-
-def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
+def run_cell(args, device=None, config_file=None, traffic_file=None,
+             spec=None, limits_file=None) -> dict:
     """One run of the cell; returns the result line's object. ``device``
     "cpu", ``config_file`` and ``traffic_file`` rehearse it on the CPU at
-    a small size (the tests)."""
+    a small size (the tests); ``spec`` and ``limits_file`` stand for
+    ``BENCHMARK.json`` and the configuration's limits there."""
     import torch
 
     import judge
-    import studygen
-    from profiling import Tap
+    from profiling import QUIET_S, Tap
 
-    cell, config, e2e, per_layer = cell_spec(args.workload)
+    cell, config, e2e, per_layer = cell_spec(
+        args.workload, Path(spec or ROOT / "BENCHMARK.json"))
     chips = int(cell["chips"])
     on_card = device is None
     if on_card:
@@ -144,19 +128,15 @@ def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
                         f"{torch.cuda.device_count()} are visible")
     traffic = json.loads(Path(traffic_file or BENCH / "traffic" /
                               f"{cell['traffic']}.json").read_text())
-    limits = json.loads((BENCH / "limits" /
-                         f"{cell['config']}.json").read_text())
-    sc_dict = json.loads(Path(config_file or ROOT / config["file"])
-                         .read_text())
-    gen = studygen.MemberSeeds(traffic, args.seed)
-    members = gen.members
+    limits = json.loads(Path(limits_file or BENCH / "limits" /
+                             f"{cell['config']}.json").read_text())
+    cfg = json.loads(Path(config_file or ROOT / config["file"]).read_text())
+    kind = kind_of(cfg)
 
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import union
+    from repro_torch import union  # noqa: F401  (counted as imports)
     from repro_torch.netsim import engine as ENG
     from repro_torch.obs import spans as SPANS
-    from repro_torch.union import manager as MGR
-    from repro_torch.union.scenario import Scenario
 
     t_import = time.perf_counter()
     if on_card:
@@ -164,22 +144,15 @@ def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
 
         _build.load_all(KERNELS)
     t_build = time.perf_counter()
-    dev = device or "cuda"
-    scenario = Scenario.from_dict(sc_dict)
-    horizon_us = scenario.horizon_ms * 1000.0
-
-    def study(scn, seeds):
-        return union.run(union.Experiment(
-            name=cell["name"], scenarios=[scn], members=len(seeds),
-            seeds=list(seeds)), store=None, device=dev)
+    study = kind.Study(cell["name"], cfg, traffic, args.seed,
+                       device or "cuda")
 
     def sync():
         if on_card:
             for d in range(torch.cuda.device_count()):
                 torch.cuda.synchronize(d)
 
-    study(Scenario.from_dict(studygen.late_start(sc_dict, horizon_us)),
-          gen.warmup())
+    study.warmup()
     sync()
     setup_s = time.perf_counter() - T_START
     print(f"bench: set-up: imports {t_import - T_START:.3f} s, kernels "
@@ -191,25 +164,19 @@ def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
         SPANS.get_tracer().clear()
         SPANS.enable()
         if on_card:
-            tap = Tap()
-            tap.install(MGR)
+            tap = Tap(rounds=study.tap_rounds)
+            tap.install(*study.tap_target)
     repeats = []
     t_w0 = time.perf_counter()
     try:
         while True:
-            seeds = gen.block()
             if tap is not None:
                 tap.repeat = len(repeats)
             t0 = time.perf_counter()
-            res = study(scenario, seeds) if tap is None else \
-                _watched(tap, lambda: study(scenario, seeds))
+            res = study.call() if tap is None else _watched(tap, study.call)
             t1 = time.perf_counter()
-            repeats.append(dict(
-                seeds=seeds, wall_s=t1 - t0, t0_ns=int(t0 * 1e9),
-                t1_ns=int(t1 * 1e9),
-                reports=[c.report for c in res.scenario_cells],
-                engine=res.telemetry["engine"].get("batched", {}),
-                replicas=_replica_stats(ENG)))
+            repeats.append(dict(study.record(res), wall_s=t1 - t0,
+                                t0_ns=int(t0 * 1e9), t1_ns=int(t1 * 1e9)))
             # a traced window holds the two profiled repeats and one more
             if t1 - t_w0 >= args.seconds and (
                     tap is None or len(repeats) > PROFILED_REPEATS):
@@ -219,6 +186,10 @@ def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
         if tap is not None:
             tap.remove()
         SPANS.disable()
+    if tap is not None and tap.unquiet:
+        print(f"bench: {tap.unquiet} profiler start(s) or stop(s) found a "
+              f"card's thread still running after {QUIET_S} s",
+              file=sys.stderr)
     del res
     span_events = list(SPANS.get_tracer().events)
     span_origin = SPANS.get_tracer().origin_ns
@@ -233,38 +204,18 @@ def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
     if on_card:
         torch.cuda.empty_cache()
 
-    from reference.study import member_reports
-
-    t_ref = time.perf_counter()
-    picks = studygen.checked_members(args.seed, len(repeats), members,
-                                     int(traffic["checked"]))
-    got = [repeats[r]["reports"][p] if p < len(repeats[r]["reports"])
-           else None for r, p in picks]
-    distinct = sorted({repeats[r]["seeds"][p] for r, p in picks})
-    ref = dict(zip(distinct, member_reports(sc_dict, distinct, dev)))
-    want = [ref[repeats[r]["seeds"][p]] for r, p in picks]
-    numbers = judge.judge(got, want)
-    correct, rows = judge.verdict(numbers, limits)
     print(f"bench: set-up {setup_s:.3f} s, window {window_s:.3f} s of "
           f"{len(repeats)} repeats (wall s, ticks, replay device ms: "
           + "; ".join(f"{r['wall_s']:.3f} {r['engine'].get('ticks')} "
                       f"{r['engine'].get('replay_device_ms', 0.0):.1f}"
-                      for r in repeats)
-          + f"), reference {time.perf_counter() - t_ref:.3f} s for "
-          f"{len(distinct)} members, {len(picks)} reports compared, "
-          f"{numbers['leaves']} leaves", file=sys.stderr)
-
-    all_reports = [r for rep in repeats for r in rep["reports"]]
-    attempted = len(repeats) * members
-    failed = attempted - len(all_reports) + sum(
-        1 for r in all_reports if r.get("dropped", 0) > 0)
-    sim_vms = studygen.member_virtual_ms(all_reports)
+                      for r in repeats) + ")", file=sys.stderr)
+    correct, rows = judge.verdict(study.judge(repeats), limits)
 
     metrics = {}
     if not args.trace:
-        rate = sim_vms / window_s
+        rate = study.virtual_ms(repeats) / window_s
         values = dict(sim_rate=rate, scenario_rate=rate, split_rate=rate,
-                      setup_s=setup_s)
+                      trace_rate=rate, setup_s=setup_s)
         if peak is not None:
             values["peak_mem_mib"] = peak / 2**20
         for m in e2e:
@@ -276,9 +227,7 @@ def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
             chips=chips, repeats=repeats,
             clean_repeats=repeats[PROFILED_REPEATS if tap else 0:],
             spans=span_events, span_origin_ns=span_origin,
-            shapes=sim_shapes(sc_dict, members // (chips if chips > 1
-                                                   and members % chips == 0
-                                                   else 1)),
+            shapes=study.shapes(chips),
             replay_profile=tap.replay_profile if tap else None,
             boundary_profile=tap.boundary_profile if tap else None)
         for m in per_layer:
@@ -286,8 +235,9 @@ def run_cell(args, device=None, config_file=None, traffic_file=None) -> dict:
             if v is not None:
                 metrics[m["name"]] = dict(value=v, unit=m["unit"])
 
-    out = dict(correct=bool(correct), attempted=attempted, failed=failed,
-               metrics=metrics, device=device_block(on_card, chips, peak))
+    out = dict(correct=bool(correct), attempted=len(repeats) * study.units,
+               failed=study.failed(repeats), metrics=metrics,
+               device=device_block(on_card, chips, peak))
     if args.trace and tap is not None:
         out["device"].update(_busy(tap.boundary_profile, chips))
         out["breakdown"] = breakdown(tap, span_events, span_origin)

@@ -1,6 +1,8 @@
 """The control: the reference in the precision below the simulator's
 float32 (bfloat16), put in the program's place, is judged not correct by
-the configurations' limits; the float32 reference against itself is."""
+the configurations' limits; the float32 reference against itself is. A
+trace cell's second control, FCFS records against the EASY reference,
+is judged not correct too."""
 import json
 import sys
 from pathlib import Path
@@ -32,3 +34,19 @@ def test_bfloat16_reference_fails_the_limits(config):
     assert not ok
     assert numbers["exact_leaves_off"] > 0
     assert numbers["sum_leaves_rel_gap"] > 100 * limits["sum_leaves_rel_gap"]
+
+
+def test_trace_controls_fail_the_limits():
+    import control
+    import judge
+
+    torch.set_num_threads(1)
+    cfg = json.loads((DATA / "dragonfly1d_trace_small.json").read_text())
+    limits = json.loads((DATA / "trace_limits.json").read_text())
+    out = control.trace_control(
+        cfg, dict(seeds=[7], policies=["fcfs", "easy"]), limits, "cpu")
+    assert len(out["bfloat16"]) == 2 and len(out["fcfs_as_easy"]) == 1
+    for row in out["bfloat16"] + out["fcfs_as_easy"]:
+        ok, _ = judge.verdict(row, limits)
+        assert not ok, row
+        assert row["exact_leaves_off"] > 0
